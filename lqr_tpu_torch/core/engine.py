@@ -1,0 +1,180 @@
+"""The carver engine: seam step, map extension, materialization (PyTorch).
+
+Counterpart of ``lqr_tpu.core.engine``. One seam on the compacted state:
+
+- energy = gradients of the carried reader plane ``cur_b`` (+ bias);
+- DP + backtrack through ``ops.dp_cuda`` (CUDA kernels on a CUDA tensor,
+  their plain versions on a CPU tensor);
+- compaction by roll/select: removing column s of a row is
+  ``where(lane >= s, shift_left(row), row)``;
+- the seam is recorded straight into ``vs``: a compacted ``posmap`` plane
+  (compacted column -> reference column) rides the same compaction, so
+  seam s of row y lands at ``vs[y, posmap[y, seam[y]]] = s``. This gives
+  the JAX engine's ``vs`` without its chunked one-hot commit, which exists
+  only because scatters serialize on a TPU.
+
+``ref_w`` and ``depth`` are host ints, so the seam loop never waits for the
+device. Materialization (SPEC.md §6) places pixels with cumsum destinations
+and a scatter, in place of the JAX engine's sort.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .state import EngineConfig, MapState
+from .energy import energy_from_plane
+from ..ops import dp_cuda
+
+
+def pref_is_left(s: int, freq: int) -> bool:
+    """Side preference of the 1-based seam index s (SPEC.md §5)."""
+    if freq <= 0:
+        return True
+    return ((s - 1) // freq) % 2 == 0
+
+
+def _lane(Wb: int, device) -> torch.Tensor:
+    return torch.arange(Wb, dtype=torch.int32, device=device)[None, :]
+
+
+def _posmap_from_vs(vs: torch.Tensor, ref_w: int) -> torch.Tensor:
+    """posmap[y, r] = reference column of the r-th visible pixel of row y
+    (entries past the row's visible count are don't-care)."""
+    H, Wb = vs.shape
+    visible = (vs == 0) & (_lane(Wb, vs.device) < ref_w)
+    hidden = (~visible).to(torch.uint8)
+    return torch.argsort(hidden, dim=1, stable=True).to(torch.int32)
+
+
+def _carve_once(cfg: EngineConfig, cur_b, cur_bias, cur_rig, posmap,
+                w: int, s: int):
+    """Find seam s (1-based) on the compacted planes at width w and compact
+    them. Returns (seam [H] i32, cur_b', cur_bias', cur_rig', posmap')."""
+    lane = _lane(cfg.Wb, cur_b.device)
+    pl = pref_is_left(s, cfg.side_switch_freq)
+
+    e = energy_from_plane(cur_b, w, cfg.nrg)
+    if cfg.has_bias:
+        e = torch.where(lane < w, e + cur_bias, torch.inf)
+
+    seam = dp_cuda.find_seam(e, cur_rig, pl, cfg.delta_x, cfg.has_rig)
+
+    ge = lane >= seam[:, None]
+    keep = lane < (w - 1)
+
+    def compact(a):
+        out = torch.where(ge, torch.roll(a, -1, dims=1), a)
+        return torch.where(keep, out, 0)
+
+    cur_b = compact(cur_b)
+    if cfg.has_bias:
+        cur_bias = compact(cur_bias)
+    if cfg.has_rig:
+        cur_rig = compact(cur_rig)
+    return seam, cur_b, cur_bias, cur_rig, compact(posmap)
+
+
+def extend_map(cfg: EngineConfig, st: MapState, k: int) -> MapState:
+    """Carve k further seams into the map (depth += k).
+
+    The returned state owns a fresh ``vs`` (the input state is left
+    unchanged); seams are written into it in place as they are found."""
+    vs = st.vs.clone()
+    posmap = _posmap_from_vs(vs, st.ref_w)
+    cur_b, cur_bias, cur_rig = st.cur_b, st.cur_bias, st.cur_rig
+    depth = st.depth
+    for _ in range(int(k)):
+        s = depth + 1
+        seam, cur_b, cur_bias, cur_rig, pm_next = _carve_once(
+            cfg, cur_b, cur_bias, cur_rig, posmap, st.ref_w - depth, s)
+        ref_col = posmap.gather(1, seam[:, None].long()).long()
+        vs.scatter_(1, ref_col, s)
+        posmap = pm_next
+        depth = s
+    return st._replace(vs=vs, cur_b=cur_b, cur_bias=cur_bias,
+                       cur_rig=cur_rig, depth=depth)
+
+
+def seam_step(cfg: EngineConfig, st: MapState) -> MapState:
+    """Carve one more seam into the map (depth += 1)."""
+    return extend_map(cfg, st, 1)
+
+
+# ---------------------------------------------------------------------------
+# materialization (SPEC.md §6)
+# ---------------------------------------------------------------------------
+
+def _avg_insert(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Value of a pixel inserted between a and b (floor average for u8)."""
+    if a.dtype == torch.uint8:
+        return torch.div(a.to(torch.int16) + b.to(torch.int16), 2,
+                         rounding_mode="floor").to(torch.uint8)
+    return (a + b) * 0.5
+
+
+def _place(vals: torch.Tensor, dest: torch.Tensor, width: int):
+    """out[y, dest[y, x]] = vals[y, x] for dest < width; larger dests land
+    in a drop column. vals: [H, W, C]."""
+    H, _, C = vals.shape
+    dest = dest.clamp(max=width).long()
+    out = vals.new_zeros((H, width + 1, C))
+    out.scatter_(1, dest[:, :, None].expand(-1, -1, C), vals)
+    return out[:, :width]
+
+
+def materialize_array(arr: torch.Tensor, vs: torch.Tensor, ref_w: int,
+                      w: int, out_Wb: int) -> torch.Tensor:
+    """Apply a visibility map to one reference-coordinate array.
+
+    arr: [H, Wb] or [H, Wb, C]; vs: [H, Wb] i32. Returns [H, out_Wb(,C)]
+    with lanes >= w zeroed; requires |w - ref_w| <= depth.
+
+    shrink: keep pixels with vs == 0 or vs > ref_w - w, in column order.
+    enlarge: after each pixel with 1 <= vs <= w - ref_w, insert the
+    average of it and its right neighbour (the pixel itself at the edge).
+    """
+    H, Wb = vs.shape
+    lane = _lane(Wb, vs.device)
+    has_c = arr.ndim == 3
+    a = arr if has_c else arr[:, :, None]
+    if w <= ref_w:
+        k = ref_w - w
+        keep = ((vs == 0) | (vs > k)) & (lane < ref_w)
+        dest = torch.cumsum(keep.to(torch.int32), dim=1) - 1
+        out = _place(a, torch.where(keep, dest, out_Wb), out_Wb)
+    else:
+        k = w - ref_w
+        valid = lane < ref_w
+        dup = valid & (vs >= 1) & (vs <= k)
+        pos = lane + torch.cumsum(dup.to(torch.int32), dim=1) - dup.to(
+            torch.int32)                 # destination of each original
+        nxt = torch.roll(a, -1, dims=1)
+        nxt = torch.where((lane == ref_w - 1)[:, :, None], a, nxt)
+        ins = _avg_insert(a, nxt)
+        vals = torch.cat([a, ins], dim=1)
+        dest = torch.cat([torch.where(valid, pos, out_Wb),
+                          torch.where(dup, pos + 1, out_Wb)], dim=1)
+        out = _place(vals, dest, out_Wb)
+    out = torch.where((_lane(out_Wb, vs.device) < w)[:, :, None], out, 0)
+    return out if has_c else out[:, :, 0]
+
+
+def materialize(cfg: EngineConfig, st: MapState, w: int,
+                out_Wb: int) -> torch.Tensor:
+    """Materialize the main image at width w -> u8 [H, out_Wb, C]."""
+    return materialize_array(st.ref, st.vs, st.ref_w, w, out_Wb)
+
+
+def materialize_all(cfg: EngineConfig, st: MapState, w: int, out_Wb: int):
+    """Materialize main + bias + rig + aux at width w.
+
+    Returns (img, bias, rig, aux_tuple); bias/rig are None when absent."""
+    img = materialize_array(st.ref, st.vs, st.ref_w, w, out_Wb)
+    bias = (materialize_array(st.bias, st.vs, st.ref_w, w, out_Wb)
+            if st.bias is not None else None)
+    rig = (materialize_array(st.rig, st.vs, st.ref_w, w, out_Wb)
+           if st.rig is not None else None)
+    aux = tuple(materialize_array(x, st.vs, st.ref_w, w, out_Wb)
+                for x in st.aux)
+    return img, bias, rig, aux

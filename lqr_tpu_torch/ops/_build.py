@@ -1,0 +1,87 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) with nvcc.
+
+The kernels have a plain ``extern "C"`` interface and are loaded with
+ctypes, so the build needs no PyTorch headers (seconds, not minutes). The
+library is compiled at first use into ``lqr_tpu_torch/build/`` and rebuilt
+when a source is newer than it. Flags keep the arithmetic IEEE: no
+``--use_fast_math``, no ``-prec-sqrt=false``, and ``--fmad=false`` so no
+multiply-add is contracted into an FMA.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import pathlib
+import shutil
+import subprocess
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD = _PKG / "build"
+SO = BUILD / "liblqr_kernels.so"
+SOURCES = (CSRC / "dp_forward.cu", CSRC / "backtrack.cu")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", "nvcc")
+
+
+def _stale() -> bool:
+    if not SO.exists():
+        return True
+    built = SO.stat().st_mtime
+    return any(src.stat().st_mtime > built for src in SOURCES)
+
+
+def build() -> pathlib.Path:
+    """Compile the kernels if the library is missing or stale. Raises
+    RuntimeError with nvcc's output when the build fails."""
+    if not _stale():
+        return SO
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = SO.with_name(f"{SO.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except FileNotFoundError as e:
+        raise RuntimeError(f"nvcc not found ({cmd[0]}): {e}") from e
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, SO)     # atomic: a concurrent loader never sees a part
+    return SO
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built if needed, with argtypes set."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(str(build()))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lqr_dp_forward.restype = i
+    lib.lqr_dp_forward.argtypes = [p, p, p, i, i, i, i, p, p, p]
+    lib.lqr_backtrack.restype = i
+    lib.lqr_backtrack.argtypes = [p, p, i, i, i, p, p]
+    lib.lqr_cuda_error_string.restype = ctypes.c_char_p
+    lib.lqr_cuda_error_string.argtypes = [i]
+    _lib = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error."""
+    if rc != 0:
+        msg = lib.lqr_cuda_error_string(rc).decode(errors="replace")
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")

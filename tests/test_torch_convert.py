@@ -1,0 +1,137 @@
+"""State carried across from the JAX package to the port (and back), and
+the port's constants, errors and messages against lqr_tpu's."""
+
+import dataclasses
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import lqr_tpu.config as jconfig
+import lqr_tpu.errors as jerrors
+from conftest import random_image
+from lqr_tpu.core import engine as jeng
+from lqr_tpu.core import state as jst
+from lqr_tpu_torch import config as tconfig
+from lqr_tpu_torch import errors as terrors
+from lqr_tpu_torch import i18n as ti18n
+from lqr_tpu_torch.convert import (config_from_jax_fields, state_from_numpy,
+                                   state_to_numpy)
+from lqr_tpu_torch.core import engine as teng
+
+torch.set_num_threads(1)
+
+_FIELDS = ("ref", "bias", "rig", "vs", "aux", "cur_b", "cur_bias",
+           "cur_rig", "ref_w", "depth")
+
+
+def _to_numpy(jstate) -> dict:
+    out = {}
+    for name in _FIELDS:
+        v = getattr(jstate, name)
+        if name == "aux":
+            out[name] = tuple(np.asarray(a) for a in v)
+        else:
+            out[name] = None if v is None else np.asarray(v)
+    return out
+
+
+@pytest.mark.parametrize("delta_x,rigidity", [(1, 0.0), (2, 5.0)])
+def test_carry_jax_state_into_port(delta_x, rigidity):
+    rng = np.random.default_rng(delta_x)
+    H, w, Wb, k, m = 20, 110, 128, 12, 17
+    img = (random_image(rng, H, w, 3) // 8) * 8
+    jcfg = jst.EngineConfig(H=H, Wb=Wb, C=3, delta_x=delta_x,
+                            has_rig=rigidity > 0, use_pallas=False)
+    rig = (np.full((H, w), np.float32(rigidity), np.float32)
+           if rigidity else None)
+    j0 = jst.init_state(jcfg, img, rig=rig)
+    jk = jeng.extend_map(jcfg, j0, jnp.int32(k))
+    jkm = jeng.extend_map(jcfg, j0, jnp.int32(k + m))
+
+    fields = dataclasses.asdict(jcfg)
+    tcfg, device = config_from_jax_fields(fields)
+    assert device == "cpu" and tcfg.delta_x == delta_x
+    t = state_from_numpy(fields, _to_numpy(jk), device)
+    assert (t.ref_w, t.depth) == (w, k)
+    t = teng.extend_map(tcfg, t, m)
+    np.testing.assert_array_equal(t.vs.numpy(), np.asarray(jkm.vs))
+    np.testing.assert_array_equal(t.cur_b.numpy(), np.asarray(jkm.cur_b))
+    img_t = teng.materialize(tcfg, t, w - k - m, 128)
+    img_j = jeng.materialize(jcfg, jkm, jnp.int32(w - k - m), 128)
+    np.testing.assert_array_equal(img_t.numpy(), np.asarray(img_j))
+
+    back = state_to_numpy(t)
+    want = _to_numpy(jkm)
+    for name in _FIELDS:
+        if name == "aux":
+            assert back[name] == want[name] == ()
+        elif want[name] is None:
+            assert back[name] is None
+        else:
+            assert back[name].dtype == want[name].dtype, name
+            np.testing.assert_array_equal(back[name], want[name])
+
+
+def test_round_trip_and_presence_checks():
+    rng = np.random.default_rng(4)
+    H, w, Wb = 8, 30, 128
+    jcfg = jst.EngineConfig(H=H, Wb=Wb, C=1, has_bias=True,
+                            aux_channels=(3,), use_pallas=True)
+    bias = rng.standard_normal((H, w)).astype(np.float32)
+    aux = random_image(rng, H, w, 3)
+    j0 = jst.init_state(jcfg, random_image(rng, H, w, 1), bias=bias,
+                        aux=(aux,))
+    fields = dataclasses.asdict(jcfg)
+    tcfg, device = config_from_jax_fields(fields)
+    assert device == "cuda" and tcfg.aux_channels == (3,)
+    arrays = _to_numpy(j0)
+    back = state_to_numpy(state_from_numpy(fields, arrays, "cpu"))
+    for name in _FIELDS:
+        if name == "aux":
+            assert len(back[name]) == 1
+            np.testing.assert_array_equal(back[name][0], arrays[name][0])
+        elif arrays[name] is None:
+            assert back[name] is None
+        else:
+            np.testing.assert_array_equal(back[name], arrays[name])
+    with pytest.raises(ValueError):
+        state_from_numpy(fields, dict(arrays, bias=None), "cpu")
+    with pytest.raises(ValueError):
+        state_from_numpy(fields, dict(arrays, vs=arrays["vs"][:, :64]),
+                         "cpu")
+
+
+def test_config_values_match_jax():
+    for enum_name in ("EnergyFunc", "ResizeOrder"):
+        got = {e.name: int(e) for e in getattr(tconfig, enum_name)}
+        want = {e.name: int(e) for e in getattr(jconfig, enum_name)}
+        assert got == want
+    for name in ("DEFAULT_SIDE_SWITCH_FREQUENCY", "MAX_DELTA_X",
+                 "MIN_ENL_STEP", "MAX_ENL_STEP"):
+        assert getattr(tconfig, name) == getattr(jconfig, name)
+
+
+def test_errors_and_messages_match_jax(monkeypatch):
+    for cls in ("LqrError", "LqrConfigError", "LqrImageError",
+                "LqrStateError"):
+        assert issubclass(getattr(terrors, cls), terrors.LqrError)
+    import lqr_tpu.i18n as ji18n
+    for lang in ("", "it"):
+        monkeypatch.setenv("LANGUAGE", lang)
+        for mod in (ti18n, ji18n):
+            mod.reset()
+        try:
+            for check, args in ((jerrors.check_channels, (5,)),
+                                (jerrors.check_target_size, (0, 3))):
+                with pytest.raises(jerrors.LqrError) as want:
+                    check(*args)
+                with pytest.raises(terrors.LqrError) as got:
+                    getattr(terrors, check.__name__)(*args)
+                assert str(got.value) == str(want.value)
+                assert type(got.value).__name__ == type(want.value).__name__
+        finally:
+            for mod in (ti18n, ji18n):
+                mod.reset()
+    assert ti18n.BUNDLED_DIR == ji18n.BUNDLED_DIR

@@ -1,0 +1,120 @@
+"""The port's engine (lqr_tpu_torch.core) against lqr_tpu.core on the CPU:
+bit-exact energies, visibility maps, compacted planes and materialized
+images (u8-equal), shrink and enlarge, delta_x 1 and 2, with and without
+rigidity. The JAX engine runs with use_pallas=False."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from conftest import random_image
+from lqr_tpu.config import EnergyFunc
+from lqr_tpu.core import energy as jen
+from lqr_tpu.core import engine as jeng
+from lqr_tpu.core import state as jst
+from lqr_tpu_torch.core import energy as ten
+from lqr_tpu_torch.core import engine as teng
+from lqr_tpu_torch.core import state as tst
+
+torch.set_num_threads(1)
+
+
+def _quantized(rng, h, w, c):
+    return (random_image(rng, h, w, c) // 8) * 8      # ties on purpose
+
+
+@pytest.mark.parametrize("nrg", list(EnergyFunc))
+@pytest.mark.parametrize("C", [3, 4])
+def test_energy_matches_jax(nrg, C):
+    rng = np.random.default_rng(int(nrg) * 10 + C)
+    H, w, Wb = 12, 50, 128
+    img = np.zeros((H, Wb, C), np.uint8)
+    img[:, :w] = random_image(rng, H, w, C)
+    b_want = jen.reader_plane(jnp.asarray(img), int(nrg))
+    b_got = ten.reader_plane(torch.from_numpy(img), int(nrg))
+    np.testing.assert_array_equal(b_got.numpy(), np.asarray(b_want))
+    for ww in (w, 1, 2):
+        e_want = jen.energy_from_plane(b_want, jnp.int32(ww), int(nrg))
+        e_got = ten.energy_from_plane(b_got, ww, int(nrg))
+        assert e_got.dtype == torch.float32
+        np.testing.assert_array_equal(e_got.numpy(), np.asarray(e_want),
+                                      err_msg=f"w={ww}")
+
+
+def _states(img, Wb, delta_x, rigidity):
+    H, w, C = img.shape
+    kw = dict(H=H, Wb=Wb, C=C, delta_x=delta_x, has_rig=rigidity > 0)
+    jcfg = jst.EngineConfig(use_pallas=False, **kw)
+    tcfg = tst.EngineConfig(**kw)
+    rig = (np.full((H, w), np.float32(rigidity), np.float32)
+           if rigidity > 0 else None)
+    return (jcfg, jst.init_state(jcfg, img, rig=rig),
+            tcfg, tst.init_state(tcfg, img, rig=rig))
+
+
+@pytest.mark.parametrize("delta_x", [1, 2])
+@pytest.mark.parametrize("rigidity", [0.0, 3.0])
+def test_extend_and_materialize_match_jax(delta_x, rigidity):
+    rng = np.random.default_rng(delta_x * 7 + int(rigidity))
+    H, w, Wb, k = 24, 200, 256, 40
+    img = _quantized(rng, H, w, 3)
+    jcfg, jst0, tcfg, tst0 = _states(img, Wb, delta_x, rigidity)
+
+    jst1 = jeng.extend_map(jcfg, jst0, jnp.int32(k))
+    tst1 = teng.extend_map(tcfg, tst0, k)
+    assert tst1.depth == k and tst0.depth == 0
+    assert not tst0.vs.any()                  # the input state is untouched
+    np.testing.assert_array_equal(tst1.vs.numpy(), np.asarray(jst1.vs))
+    np.testing.assert_array_equal(tst1.cur_b.numpy(), np.asarray(jst1.cur_b))
+    if rigidity:
+        np.testing.assert_array_equal(tst1.cur_rig.numpy(),
+                                      np.asarray(jst1.cur_rig))
+
+    out_Wb = 256
+    for target in (w - k, w - 13, w, w + 9, w + k):
+        j_img, _, j_rig, _ = jeng.materialize_all(jcfg, jst1,
+                                                  jnp.int32(target), out_Wb)
+        t_img, t_bias, t_rig, t_aux = teng.materialize_all(tcfg, tst1,
+                                                           target, out_Wb)
+        assert t_img.dtype == torch.uint8 and t_bias is None and t_aux == ()
+        np.testing.assert_array_equal(t_img.numpy(), np.asarray(j_img),
+                                      err_msg=f"w={target}")
+        if rigidity:
+            np.testing.assert_array_equal(t_rig.numpy(), np.asarray(j_rig))
+
+
+def test_materialize_out_width_and_channels():
+    """Output buffers narrower and wider than Wb, 1 and 2 channels, and
+    a map extended in two calls."""
+    rng = np.random.default_rng(5)
+    H, w, Wb = 16, 120, 128
+    for C in (1, 2):
+        img = _quantized(rng, H, w, C)
+        jcfg, j0, tcfg, t0 = _states(img, Wb, 1, 0.0)
+        j1 = jeng.extend_map(jcfg, jeng.extend_map(jcfg, j0, jnp.int32(10)),
+                             jnp.int32(15))
+        t1 = teng.extend_map(tcfg, teng.extend_map(tcfg, t0, 10), 15)
+        np.testing.assert_array_equal(t1.vs.numpy(), np.asarray(j1.vs))
+        for target, out_Wb in ((w - 25, 128), (w + 20, 256), (w + 25, 384)):
+            want = jeng.materialize(jcfg, j1, jnp.int32(target), out_Wb)
+            got = teng.materialize(tcfg, t1, target, out_Wb)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_seam_step_matches_jax():
+    rng = np.random.default_rng(9)
+    img = _quantized(rng, 12, 60, 3)
+    jcfg, j, tcfg, t = _states(img, 128, 1, 0.0)
+    for _ in range(3):
+        j = jeng.seam_step(jcfg, j)
+        t = teng.seam_step(tcfg, t)
+    assert t.depth == int(j.depth) == 3
+    np.testing.assert_array_equal(t.vs.numpy(), np.asarray(j.vs))
+
+
+def test_pref_is_left_matches_jax():
+    for freq in (0, 1, 2, 5):
+        for s in range(1, 30):
+            assert teng.pref_is_left(s, freq) == bool(
+                jeng.pref_is_left(jnp.int32(s), freq))

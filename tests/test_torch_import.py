@@ -1,0 +1,56 @@
+"""The port stands alone: importing lqr_tpu_torch and carving on the CPU
+never imports jax or lqr_tpu."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import torch
+
+torch.set_num_threads(1)
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+_PROBE = """
+import sys
+import numpy as np
+import lqr_tpu_torch
+img = (np.arange(12 * 40 * 3) % 251).astype(np.uint8).reshape(12, 40, 3)
+c = lqr_tpu_torch.Carver(img, device="cpu")
+c.resize(33, 12)
+assert c.get_image().shape == (12, 33, 3)
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "lqr_tpu"))
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_import_and_carve_without_jax(tmp_path):
+    env = {"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin",
+           "HOME": str(tmp_path), "OMP_NUM_THREADS": "1"}
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_no_source_imports_jax_or_lqr_tpu():
+    pkg = REPO / "lqr_tpu_torch"
+    files = sorted(p for p in pkg.rglob("*.py")
+                   if "build" not in p.relative_to(pkg).parts)
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "jaxlib",
+                                                  "lqr_tpu"), (path, name)
