@@ -1,15 +1,16 @@
 """The ``Carver`` host API on PyTorch: liblqr's carver surface.
 
-Counterpart of ``lqr_tpu.carver`` for the carving path: construction
-(``delta_x``, ``rigidity``), the setters, ``resize`` with orientation by
-transpose and multi-pass enlargement, ``flatten``, ``get_image``, the
-visibility-map dump and the introspection properties. Masks
-(``bias_add``/``rigmask_add``) and attached aux images are not ported yet.
+Counterpart of ``lqr_tpu.carver``: construction (``delta_x``,
+``rigidity``), the setters, preservation/discard masks (``bias_add``),
+rigidity masks (``rigmask_add``), attached aux images (``attach``,
+``get_aux``), ``resize`` with orientation by transpose and multi-pass
+enlargement, ``flatten``, ``get_image``/``get_image_device``, the
+visibility-map dump and the introspection properties.
 
-The device is explicit: ``device="cuda"`` (the default) runs the DP and
-backtrack as CUDA kernels and raises when CUDA is absent; ``device="cpu"``
-runs their plain versions. Pixel data stays on the device; only
-``get_image`` and ``vmap_dump`` copy to the host.
+The device is explicit: ``device="cuda"`` (the default) runs the carving
+kernels and raises when CUDA is absent; ``device="cpu"`` runs their plain
+versions. Pixel data stays on the device; only ``get_image``, ``get_aux``
+and ``vmap_dump`` copy to the host.
 """
 
 from __future__ import annotations
@@ -21,10 +22,12 @@ import torch
 
 from .config import (EnergyFunc, ResizeOrder, DEFAULT_SIDE_SWITCH_FREQUENCY,
                      MAX_DELTA_X, MAX_ENL_STEP, MIN_ENL_STEP)
-from .errors import LqrConfigError, LqrStateError, check_channels
+from .errors import (LqrConfigError, LqrImageError, LqrStateError,
+                     check_channels)
 from .core.state import EngineConfig, init_state, round_up
 from .core import engine as eng
 from .i18n import _
+from .oracle import strength
 
 
 @dataclasses.dataclass
@@ -45,6 +48,20 @@ class VMap:
 
 def _bucket(w: int) -> int:
     return max(128, round_up(w, 128))
+
+
+def place_mask_numpy(mask: np.ndarray, H: int, W: int, x_off: int,
+                     y_off: int) -> np.ndarray:
+    """Strength field [H, W] f32 of a mask placed at (x_off, y_off) on the
+    image, clipped to it (SPEC.md §3)."""
+    s = strength(mask)
+    field = np.zeros((H, W), np.float32)
+    hm, wm = s.shape
+    y0, y1 = max(0, y_off), min(H, y_off + hm)
+    x0, x1 = max(0, x_off), min(W, x_off + wm)
+    if y1 > y0 and x1 > x0:
+        field[y0:y1, x0:x1] = s[y0 - y_off:y1 - y_off, x0 - x_off:x1 - x_off]
+    return field
 
 
 def _resolve_device(device) -> torch.device:
@@ -90,7 +107,9 @@ class Carver:
         self._C = c
         # reference arrays, image orientation ([h, w] layout)
         self._ref_img = torch.tensor(pixels, device=self.device)   # a copy
+        self._ref_bias = None               # f32 [h, w] or None
         self._ref_rig = None                # f32 [h, w] or None
+        self._aux: list[torch.Tensor] = []  # u8 [h, w, C_i]
         self._ref_w, self._ref_h = w, h
         self._w, self._h = w, h             # current materialized size
         # live map
@@ -125,6 +144,55 @@ class Carver:
         """progress: object with .init(msg), .update(frac), .end()."""
         self.progress = progress
 
+    # -- masks --------------------------------------------------------------
+
+    def bias_add(self, mask: np.ndarray, factor: float,
+                 x_off: int = 0, y_off: int = 0):
+        """lqr_carver_bias_add_rgb_area (SPEC.md §3). mask: [hm, wm(,C)] u8
+        placed at (x_off, y_off) relative to the image; adds
+        strength * factor/1000 to the energy bias of overlapping pixels
+        (a preservation mask for factor > 0, a discard mask for < 0)."""
+        self._flatten_if_carved()
+        # f32(factor/1000): the f64 quotient rounded once, as lqr_tpu does
+        add = self._place_mask(mask, x_off, y_off) * torch.tensor(
+            np.float32(float(factor) / 1000.0))
+        self._ref_bias = add if self._ref_bias is None else self._ref_bias + add
+        self._drop_map()
+
+    def rigmask_add(self, mask: np.ndarray, x_off: int = 0, y_off: int = 0):
+        """lqr_carver_rigmask_add_rgb_area (SPEC.md §4): per-pixel rigidity
+        multiplier = mask strength (0 outside the mask area)."""
+        self._flatten_if_carved()
+        field = self._place_mask(mask, x_off, y_off)
+        self._ref_rig = field if self._ref_rig is None else self._ref_rig + field
+        self._drop_map()
+
+    def _place_mask(self, mask, x_off, y_off) -> torch.Tensor:
+        """The mask's strength field on the image, placed on the host and
+        copied to the device once."""
+        field = place_mask_numpy(np.asarray(mask, np.uint8), self._ref_h,
+                                 self._ref_w, x_off, y_off)
+        return torch.from_numpy(field).to(self.device)
+
+    # -- aux carvers --------------------------------------------------------
+
+    def attach(self, aux_pixels: np.ndarray):
+        """lqr_carver_attach: an aux image (same h, w; 1-4 channels) that
+        undergoes the identical seam sequence."""
+        self._flatten_if_carved()
+        a = np.asarray(aux_pixels, np.uint8)
+        if a.ndim == 2:
+            a = a[:, :, None]
+        if a.shape[:2] != (self._ref_h, self._ref_w):
+            raise LqrImageError(
+                _("attached aux carver is {aw}x{ah}, main image is "
+                  "{w}x{h}; attached carvers must match the main size")
+                .format(aw=a.shape[1], ah=a.shape[0], w=self._ref_w,
+                        h=self._ref_h))
+        check_channels(a.shape[2], "aux carver")
+        self._aux.append(torch.tensor(a, device=self.device))   # a copy
+        self._drop_map()
+
     # -- map plumbing -------------------------------------------------------
 
     def _drop_map(self):
@@ -136,6 +204,10 @@ class Carver:
         self._state = None
         self._cfg = None
 
+    def _flatten_if_carved(self):
+        if self._state is not None and self._state.depth:
+            self.flatten()
+
     def _local_dims(self, orientation):
         if orientation == 0:
             return self._ref_h, self._ref_w
@@ -144,13 +216,18 @@ class Carver:
     def _build_map(self, orientation: int):
         """Create a fresh MapState in the given orientation."""
         H, W = self._local_dims(orientation)
-        img, rig = self._ref_img, self._ref_rig
+        img, bias, rig = self._ref_img, self._ref_bias, self._ref_rig
+        aux = list(self._aux)
         if orientation == 1:
             img = img.transpose(0, 1)
+            bias = None if bias is None else bias.transpose(0, 1)
             rig = None if rig is None else rig.transpose(0, 1)
+            aux = [a.transpose(0, 1) for a in aux]
         cfg = EngineConfig(
             H=H, Wb=_bucket(W), C=self._C, delta_x=self.delta_x,
             nrg=int(self.nrg), side_switch_freq=self.side_switch_freq,
+            aux_channels=tuple(a.shape[2] for a in aux),
+            has_bias=bias is not None,
             has_rig=rig is not None or self.rigidity > 0,
         )
         rig_field = None
@@ -164,7 +241,8 @@ class Carver:
                 rig_field = torch.full((H, W), np.float32(self.rigidity),
                                        dtype=torch.float32,
                                        device=self.device)
-        self._state = init_state(cfg, img, rig=rig_field, device=self.device)
+        self._state = init_state(cfg, img, bias=bias, rig=rig_field,
+                                 aux=aux, device=self.device)
         self._cfg = cfg
         self._orientation = orientation
 
@@ -265,25 +343,29 @@ class Carver:
                 self._record_vmap()
 
     def _materialize(self):
-        """(img, rig) of the live map at the current size, image
-        orientation, each cut to the current width."""
+        """(img, bias, rig, aux list) at the current size, image
+        orientation, each cut to the current width; bias/rig are None when
+        absent. Without a live map: the reference arrays."""
         st, cfg = self._state, self._cfg
+        if st is None:
+            return self._ref_img, self._ref_bias, self._ref_rig, list(self._aux)
         w_local = self._w if self._orientation == 0 else self._h
         out_Wb = _bucket(max(w_local, st.ref_w))
-        img, _b, rig, _aux = eng.materialize_all(cfg, st, w_local, out_Wb)
-        img = img[:, :w_local]
-        rig = None if rig is None else rig[:, :w_local]
+        img, bias, rig, aux = eng.materialize_all(cfg, st, w_local, out_Wb)
+        planes = [img, bias, rig, *aux]
+        planes = [None if p is None else p[:, :w_local] for p in planes]
         if self._orientation == 1:
-            img = img.transpose(0, 1)
-            rig = None if rig is None else rig.transpose(0, 1)
-        return img.contiguous(), rig
+            planes = [None if p is None else p.transpose(0, 1)
+                      for p in planes]
+        img, bias, rig, *aux = planes
+        return img.contiguous(), bias, rig, aux
 
     def flatten(self):
         """lqr_carver_flatten: the current size becomes the new reference."""
         if self._state is None:
             return
-        img, rig = self._materialize()
-        self._ref_img = img
+        img, bias, rig, aux = self._materialize()
+        self._ref_img, self._ref_bias, self._aux = img, bias, aux
         # the rig field folds the global rigidity in; unfold it so
         # _build_map can apply it again (mask-equivalent: field / rigidity)
         if rig is not None and self.rigidity > 0:
@@ -298,8 +380,20 @@ class Carver:
 
     def get_image(self) -> np.ndarray:
         """Current materialized image, [h, w, C] uint8, image orientation."""
-        img = self._ref_img if self._state is None else self._materialize()[0]
-        return np.array(img.cpu())      # a copy, never a view of the state
+        return self.get_image_device().cpu().numpy().copy()   # never a view
+
+    def get_image_device(self) -> torch.Tensor:
+        """Current materialized image as a tensor on the carver's device
+        ([h, w, C] u8, image orientation), for pipelines that feed it
+        onward without a copy to the host. Always a fresh tensor: writing
+        to it leaves the carver as it was."""
+        img = self._materialize()[0]
+        return img.clone() if self._state is None else img
+
+    def get_aux(self, i: int) -> np.ndarray:
+        """Current materialized aux image i (the identical seam sequence),
+        [h, w, C_i] uint8, a host copy."""
+        return self._materialize()[3][i].cpu().numpy().copy()
 
     def vmap_dump(self) -> VMap | None:
         """lqr_vmap_dump: snapshot the current visibility map."""

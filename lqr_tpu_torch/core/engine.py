@@ -1,6 +1,15 @@
 """The carver engine: seam step, map extension, materialization (PyTorch).
 
-Counterpart of ``lqr_tpu.core.engine``. One seam on the compacted state:
+Counterpart of ``lqr_tpu.core.engine``. ``extend_map`` takes one of two
+routes, as the JAX engine does:
+
+- the resident route, where ``ops.carve_resident.resident_ok`` admits the
+  map: chunks of KC seams, each carved by one launch of the resident
+  kernel, whose seams come back as reference columns and go into ``vs`` by
+  one scatter per chunk;
+- the per-seam route otherwise, one seam at a time as below.
+
+One seam on the compacted state:
 
 - energy = gradients of the carried reader plane ``cur_b`` (+ bias);
 - DP + backtrack through ``ops.dp_cuda`` (CUDA kernels on a CUDA tensor,
@@ -25,6 +34,10 @@ import torch
 from .state import EngineConfig, MapState
 from .energy import energy_from_plane
 from ..ops import dp_cuda
+from ..ops.carve_resident import carve_chunk_resident, resident_ok
+
+# seams per resident chunk: one kernel launch and one vs scatter each
+KC = 128
 
 
 def pref_is_left(s: int, freq: int) -> bool:
@@ -48,9 +61,11 @@ def _posmap_from_vs(vs: torch.Tensor, ref_w: int) -> torch.Tensor:
 
 
 def _carve_once(cfg: EngineConfig, cur_b, cur_bias, cur_rig, posmap,
-                w: int, s: int):
+                w: int, s: int, find_seam=dp_cuda.find_seam):
     """Find seam s (1-based) on the compacted planes at width w and compact
-    them. Returns (seam [H] i32, cur_b', cur_bias', cur_rig', posmap')."""
+    them. Returns (seam [H] i32, cur_b', cur_bias', cur_rig', posmap').
+    ``find_seam``: the kernels' wrapper, or ``dp_cuda.find_seam_plain``
+    for the resident kernel's plain version."""
     lane = _lane(cfg.Wb, cur_b.device)
     pl = pref_is_left(s, cfg.side_switch_freq)
 
@@ -58,7 +73,7 @@ def _carve_once(cfg: EngineConfig, cur_b, cur_bias, cur_rig, posmap,
     if cfg.has_bias:
         e = torch.where(lane < w, e + cur_bias, torch.inf)
 
-    seam = dp_cuda.find_seam(e, cur_rig, pl, cfg.delta_x, cfg.has_rig)
+    seam = find_seam(e, cur_rig, pl, cfg.delta_x, cfg.has_rig)
 
     ge = lane >= seam[:, None]
     keep = lane < (w - 1)
@@ -79,7 +94,46 @@ def extend_map(cfg: EngineConfig, st: MapState, k: int) -> MapState:
     """Carve k further seams into the map (depth += k).
 
     The returned state owns a fresh ``vs`` (the input state is left
-    unchanged); seams are written into it in place as they are found."""
+    unchanged); seams are written into it in place as they are found.
+    Both routes give the same state, bit for bit."""
+    if resident_ok(cfg.H, cfg.Wb, cfg.has_bias, cfg.has_rig):
+        return _extend_resident(cfg, st, k)
+    return _extend_per_seam(cfg, st, k)
+
+
+def _commit_ref_hist(vs: torch.Tensor, d0: int, kc: int,
+                     hist: torch.Tensor) -> None:
+    """Write seam ids d0+1 .. d0+kc into vs in place at the reference
+    columns hist[:kc] ([kc, H]): one scatter, every index distinct within
+    a row."""
+    ids = torch.arange(d0 + 1, d0 + kc + 1, dtype=torch.int32,
+                       device=vs.device)
+    vs.scatter_(1, hist[:kc].t().long(), ids[None, :].expand(vs.shape[0], kc))
+
+
+def _extend_resident(cfg: EngineConfig, st: MapState, k: int) -> MapState:
+    """extend_map in chunks of KC seams, one resident launch each (chunks
+    count from the start of this call, as in the JAX engine)."""
+    vs = st.vs.clone()
+    posmap = _posmap_from_vs(vs, st.ref_w)
+    cur_b, cur_bias, cur_rig = st.cur_b, st.cur_bias, st.cur_rig
+    depth, done = st.depth, 0
+    while done < k:
+        kc = min(KC, k - done)
+        hist, cur_b, cur_bias, cur_rig, posmap = carve_chunk_resident(
+            cur_b, cur_bias, cur_rig, posmap, st.ref_w - depth, depth, kc,
+            cfg.delta_x, cfg.has_bias, cfg.has_rig, cfg.nrg,
+            cfg.side_switch_freq, KC)
+        _commit_ref_hist(vs, depth, kc, hist)
+        depth += kc
+        done += kc
+    return st._replace(vs=vs, cur_b=cur_b, cur_bias=cur_bias,
+                       cur_rig=cur_rig, depth=depth)
+
+
+def _extend_per_seam(cfg: EngineConfig, st: MapState, k: int) -> MapState:
+    """extend_map one seam at a time, through the DP and backtrack
+    kernels."""
     vs = st.vs.clone()
     posmap = _posmap_from_vs(vs, st.ref_w)
     cur_b, cur_bias, cur_rig = st.cur_b, st.cur_bias, st.cur_rig

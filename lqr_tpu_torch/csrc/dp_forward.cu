@@ -10,11 +10,9 @@
 //   M[y, x] = E[y, x] + min_{|dx| <= delta_x} ( M[y-1, x+dx] + rig[y, x] * rigc[|dx|] )
 //
 // Out-of-range neighbours are +inf. bp[y, x] is the first candidate, in the
-// side preference's rank order (LEFT: 0, -1, +1, -2, +2, ...; RIGHT: 0, +1,
-// -1, ...), whose cost equals the minimum — the rank-order strict-min scan
-// of lqr_tpu/core/dp.py:85. rigc[m] = f32(m^1.5 / H) comes from the host,
-// rounded once from f64; the rig term is __fadd_rn(M, __fmul_rn(rig, rigc))
-// so it cannot be contracted into an FMA whatever the build flags.
+// side preference's rank order, whose cost equals the minimum (the cell
+// rule of seam_dp.cuh). rigc[m] = f32(m^1.5 / H) comes from the host,
+// rounded once from f64.
 //
 // Design: one thread block per image; up to 1024 threads stride over the
 // columns; the frontier M[y-1] / M[y] is double-buffered in shared memory
@@ -28,26 +26,21 @@
 // What the design does about it: nothing yet. A later change would
 // prefetch the next rows of E into registers or shared memory ahead of the
 // barrier (cp.async / TMA), split wide rows over a thread-block cluster
-// exchanging halo columns through distributed shared memory, carve a batch
-// of images per launch (one block each), or fold the whole per-seam step
-// into a resident multi-seam kernel (the port of carve_resident._kernel).
+// exchanging halo columns through distributed shared memory, or carve a
+// batch of images per launch (one block each). Maps whose planes fit the
+// L2 skip this kernel: carve_resident.cu carves a whole chunk of seams in
+// one launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "seam_dp.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 1024;
 constexpr int kDefaultSmem = 48 * 1024;
-
-// dx of the k-th candidate in rank order (k = 0 .. 2*delta_x)
-__device__ __forceinline__ int rank_dx(int k, bool pref_left) {
-  if (k == 0) return 0;
-  const int m = (k + 1) >> 1;
-  const bool first_of_pair = (k & 1) != 0;   // rank 2m-1
-  return (first_of_pair == pref_left) ? -m : m;
-}
 
 __global__ void dp_forward_kernel(const float* __restrict__ e,
                                   const float* __restrict__ rig,
@@ -59,7 +52,6 @@ __global__ void dp_forward_kernel(const float* __restrict__ e,
   float* prev = frontier;
   float* cur = frontier + Wb;
   const bool left = pref_left != 0;
-  const int ncand = 2 * delta_x + 1;
 
   for (int x = threadIdx.x; x < Wb; x += blockDim.x) {
     prev[x] = e[x];
@@ -73,22 +65,9 @@ __global__ void dp_forward_kernel(const float* __restrict__ e,
     int8_t* bp_row = bp + (size_t)y * Wb;
     for (int x = threadIdx.x; x < Wb; x += blockDim.x) {
       const float r = rig_row ? rig_row[x] : 0.0f;
-      float best = INFINITY;
-      int best_rank = 127;
-      int best_dx = 0;
-      for (int k = 0; k < ncand; ++k) {
-        const int dx = rank_dx(k, left);
-        const int xn = x + dx;
-        float c = (xn >= 0 && xn < Wb) ? prev[xn] : INFINITY;
-        if (rig_row && dx != 0)
-          c = __fadd_rn(c, __fmul_rn(r, rigc[dx < 0 ? -dx : dx]));
-        const bool take = c < best || (c == best && k < best_rank);
-        if (take) {
-          best = c;
-          best_rank = k;
-          best_dx = dx;
-        }
-      }
+      int best_dx;
+      const float best = dp_best(prev, x, Wb, r, rig_row != nullptr, rigc,
+                                 delta_x, left, &best_dx);
       cur[x] = __fadd_rn(e_row[x], best);
       bp_row[x] = (int8_t)best_dx;
     }

@@ -3,9 +3,10 @@
 The kernels have a plain ``extern "C"`` interface and are loaded with
 ctypes, so the build needs no PyTorch headers (seconds, not minutes). The
 library is compiled at first use into ``lqr_tpu_torch/build/`` and rebuilt
-when a source is newer than it. Flags keep the arithmetic IEEE: no
-``--use_fast_math``, no ``-prec-sqrt=false``, and ``--fmad=false`` so no
-multiply-add is contracted into an FMA.
+when a source or a header is newer than it; each source compiles in its own
+nvcc process, all started together, and one more links them. Flags keep the
+arithmetic IEEE: no ``--use_fast_math``, no ``-prec-sqrt=false``, and
+``--fmad=false`` so no multiply-add is contracted into an FMA.
 """
 
 from __future__ import annotations
@@ -20,10 +21,12 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 SO = BUILD / "liblqr_kernels.so"
-SOURCES = (CSRC / "dp_forward.cu", CSRC / "backtrack.cu")
+SOURCES = (CSRC / "dp_forward.cu", CSRC / "backtrack.cu",
+           CSRC / "carve_resident.cu")
+HEADERS = (CSRC / "seam_dp.cuh",)
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC"]
 
 _lib = None
 
@@ -40,7 +43,25 @@ def _stale() -> bool:
     if not SO.exists():
         return True
     built = SO.stat().st_mtime
-    return any(src.stat().st_mtime > built for src in SOURCES)
+    return any(src.stat().st_mtime > built for src in SOURCES + HEADERS)
+
+
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with nvcc's output if any
+    fails."""
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+    except FileNotFoundError as e:
+        raise RuntimeError(f"nvcc not found ({cmds[0][0]}): {e}") from e
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({' '.join(cmd)}):\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def build() -> pathlib.Path:
@@ -49,17 +70,19 @@ def build() -> pathlib.Path:
     if not _stale():
         return SO
     BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = SO.with_name(f"{SO.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    tag = os.getpid()
+    objs = [BUILD / f"{src.stem}.{tag}.o" for src in SOURCES]
+    tmp = SO.with_name(f"{SO.name}.{tag}.tmp")
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except FileNotFoundError as e:
-        raise RuntimeError(f"nvcc not found ({cmd[0]}): {e}") from e
-    if proc.returncode != 0:
+        _run([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(SOURCES, objs)])
+        _run([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *map(str, objs)]])
+        os.replace(tmp, SO)  # atomic: a concurrent loader never sees a part
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, SO)     # atomic: a concurrent loader never sees a part
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return SO
 
 
@@ -74,6 +97,8 @@ def load() -> ctypes.CDLL:
     lib.lqr_dp_forward.argtypes = [p, p, p, i, i, i, i, p, p, p]
     lib.lqr_backtrack.restype = i
     lib.lqr_backtrack.argtypes = [p, p, i, i, i, p, p]
+    lib.lqr_carve_resident.restype = i
+    lib.lqr_carve_resident.argtypes = [p] * 8 + [i] * 9 + [p]
     lib.lqr_cuda_error_string.restype = ctypes.c_char_p
     lib.lqr_cuda_error_string.argtypes = [i]
     _lib = lib

@@ -1,0 +1,141 @@
+"""The resident multi-seam carve: a whole chunk of seams in one launch.
+
+Counterpart of ``lqr_tpu.ops.carve_resident``. ``carve_chunk_resident``
+takes the JAX function's arguments and returns its values: the compacted
+planes and posmap after kc seams, every plane zero at x >= w0 - kc, and
+``hist [KC, H]`` i32, the seams' reference columns (rows >= kc are -1; the
+JAX function leaves them as garbage). The input tensors are left as they
+are. On a CPU tensor it runs ``carve_chunk_resident_plain``; on a CUDA
+tensor it launches ``csrc/carve_resident.cu`` on the current stream
+without synchronizing, or raises. There is no fallback from a failed launch
+to the plain version.
+
+The gate is the port's own. The kernel keeps its planes in global memory
+and counts on the L2 to hold them for the whole chunk, so ``resident_ok``
+admits a map when the planes it carries fit ``RESIDENT_BUDGET``: 20 MiB,
+40 % of the H100's 50 MB L2, which leaves the rest of the L2 to the
+backpointer writes and to whatever else runs. 512x384 (1.8 MB) and
+1024x768 with bias and rigidity (13.4 MB) are admitted; 2048x2048 (37.7 MB)
+takes the per-seam route. The TPU's criteria (H % CH, the 14 MB VMEM limit)
+are not carried over.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.state import EngineConfig
+from . import _build, dp_cuda
+
+__all__ = ["RESIDENT_BUDGET", "MAX_WB", "resident_bytes", "resident_ok",
+           "carve_chunk_resident", "carve_chunk_resident_plain"]
+
+RESIDENT_BUDGET = 20 << 20      # bytes of planes; the H100's L2 is 50 MiB
+MAX_WB = 8192                   # 1024 threads x 8 columns (the kernel's)
+
+
+def resident_bytes(H: int, Wb: int, has_bias: bool, has_rig: bool) -> int:
+    """Bytes of the planes the kernel carries: reader + posmap (+ bias)
+    (+ rig) at 4 B and the backpointers at 1 B per pixel."""
+    return H * Wb * (4 * (2 + int(has_bias) + int(has_rig)) + 1)
+
+
+def resident_ok(H: int, Wb: int, has_bias: bool, has_rig: bool) -> bool:
+    """Whether extend_map takes the resident route for this map."""
+    return (Wb <= MAX_WB
+            and resident_bytes(H, Wb, has_bias, has_rig) <= RESIDENT_BUDGET)
+
+
+def _check_args(cur_b, cur_bias, cur_rig, posmap, w0, d0, kc, delta_x,
+                has_bias, has_rig, nrg, KC) -> None:
+    if cur_b.ndim != 2:
+        raise ValueError(f"cur_b: expected [H, Wb], got {tuple(cur_b.shape)}")
+    shape, dev = tuple(cur_b.shape), cur_b.device
+    dp_cuda._check(cur_b, "cur_b", torch.float32, shape, dev)
+    dp_cuda._check(posmap, "posmap", torch.int32, shape, dev)
+    for name, plane, flag in (("cur_bias", cur_bias, has_bias),
+                              ("cur_rig", cur_rig, has_rig)):
+        if flag:
+            if plane is None:
+                raise ValueError(f"{name} is None but its flag is set")
+            dp_cuda._check(plane, name, torch.float32, shape, dev)
+    if not 0 <= kc <= KC:
+        raise ValueError(f"kc={kc} out of range 0..{KC}")
+    if not kc <= w0 <= shape[1]:
+        raise ValueError(f"w0={w0} must lie in [kc={kc}, Wb={shape[1]}]")
+    if d0 < 0:
+        raise ValueError(f"d0={d0} must be >= 0")
+    if not 0 <= delta_x <= 10:
+        raise ValueError(f"delta_x={delta_x} out of range 0..10")
+    if not 0 <= nrg <= 6:
+        raise ValueError(f"nrg={nrg} out of range 0..6")
+
+
+def carve_chunk_resident(cur_b, cur_bias, cur_rig, posmap, w0: int, d0: int,
+                         kc: int, delta_x: int, has_bias: bool,
+                         has_rig: bool, nrg: int, ssf: int, KC: int):
+    """Carve kc <= KC seams at width w0, depth d0. Returns (hist [KC, H]
+    i32, cur_b', cur_bias', cur_rig', posmap'); cur_bias'/cur_rig' are the
+    inputs when their flag is off."""
+    _check_args(cur_b, cur_bias, cur_rig, posmap, w0, d0, kc, delta_x,
+                has_bias, has_rig, nrg, KC)
+    if cur_b.device.type == "cpu":
+        return carve_chunk_resident_plain(cur_b, cur_bias, cur_rig, posmap,
+                                          w0, d0, kc, delta_x, has_bias,
+                                          has_rig, nrg, ssf, KC)
+    if cur_b.device.type != "cuda":
+        raise ValueError(f"cur_b: unsupported device {cur_b.device}")
+    H, Wb = cur_b.shape
+    if Wb > MAX_WB:
+        raise ValueError(f"Wb={Wb} exceeds the kernel's {MAX_WB}")
+
+    lib = _build.load()
+    dev = cur_b.device
+    # the kernel carves in place: it works on copies
+    b, pm = cur_b.clone(), posmap.clone()
+    bias = cur_bias.clone() if has_bias else cur_bias
+    rig = cur_rig.clone() if has_rig else cur_rig
+    hist = torch.empty((KC, H), dtype=torch.int32, device=dev)
+    bp = torch.empty((H, Wb), dtype=torch.int8, device=dev)
+    seam = torch.empty(H, dtype=torch.int32, device=dev)
+    rigc = dp_cuda._rigc_device(delta_x, H, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.lqr_carve_resident(
+            b.data_ptr(), bias.data_ptr() if has_bias else None,
+            rig.data_ptr() if has_rig else None, pm.data_ptr(),
+            bp.data_ptr(), seam.data_ptr(), hist.data_ptr(),
+            rigc.data_ptr(), H, Wb, int(w0), int(d0), int(kc), int(KC),
+            delta_x, nrg, int(ssf), stream)
+    _build.check(lib, rc, "lqr_carve_resident")
+    dp_cuda.LAUNCHES["carve_resident"] += 1
+    return hist, b, bias, rig, pm
+
+
+def carve_chunk_resident_plain(cur_b, cur_bias, cur_rig, posmap, w0: int,
+                               d0: int, kc: int, delta_x: int,
+                               has_bias: bool, has_rig: bool, nrg: int,
+                               ssf: int, KC: int):
+    """The plain version, on any device: kc per-seam steps of the engine
+    with the plain DP and backtrack, each seam recorded through posmap;
+    then zeros at x >= w0 - kc, as the kernel leaves them."""
+    from ..core.engine import _carve_once   # core.engine imports this module
+    H, Wb = cur_b.shape
+    cfg = EngineConfig(H=H, Wb=Wb, C=1, delta_x=delta_x, nrg=nrg,
+                       side_switch_freq=ssf, has_bias=has_bias,
+                       has_rig=has_rig)
+    hist = torch.full((KC, H), -1, dtype=torch.int32, device=cur_b.device)
+    b, bias, rig, pm = cur_b, cur_bias, cur_rig, posmap
+    for j in range(kc):
+        seam, b, bias, rig, pm_next = _carve_once(
+            cfg, b, bias, rig, pm, w0 - j, d0 + j + 1,
+            find_seam=dp_cuda.find_seam_plain)
+        hist[j] = pm.gather(1, seam[:, None].long())[:, 0]
+        pm = pm_next
+    keep = torch.arange(Wb, device=cur_b.device)[None, :] < w0 - kc
+    b, pm = torch.where(keep, b, 0), torch.where(keep, pm, 0)
+    if has_bias:
+        bias = torch.where(keep, bias, 0)
+    if has_rig:
+        rig = torch.where(keep, rig, 0)
+    return hist, b, bias, rig, pm

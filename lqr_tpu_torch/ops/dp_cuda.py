@@ -8,7 +8,8 @@ on the current stream without synchronizing, or raises. There is no
 fallback from a failed launch to the plain version.
 
 ``LAUNCHES`` counts successful kernel launches per kernel, so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels; it also counts the resident
+kernel of ``ops/carve_resident.py``.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from ..core.dp import (dp_forward as dp_forward_plain,
                        find_seam as find_seam_plain, rigc_table)
 from . import _build
 
-LAUNCHES = {"dp_forward": 0, "backtrack": 0}
+LAUNCHES = {"dp_forward": 0, "backtrack": 0, "carve_resident": 0}
 
 __all__ = ["LAUNCHES", "dp_forward", "backtrack", "find_seam",
            "dp_forward_plain", "backtrack_plain", "find_seam_plain"]

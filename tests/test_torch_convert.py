@@ -74,6 +74,37 @@ def test_carry_jax_state_into_port(delta_x, rigidity):
             np.testing.assert_array_equal(back[name], want[name])
 
 
+def test_carry_jax_state_with_bias_and_aux_into_port():
+    """A JAX map carved part-way with a bias plane and an aux image goes
+    on in the port, bit-equal to JAX's continuation."""
+    rng = np.random.default_rng(9)
+    H, w, Wb, k, m = 18, 100, 128, 10, 21
+    img = (random_image(rng, H, w, 3) // 8) * 8
+    bias = (np.round(rng.standard_normal((H, w)) * 4).astype(np.float32)
+            * np.float32(0.125))
+    aux = random_image(rng, H, w, 4)
+    jcfg = jst.EngineConfig(H=H, Wb=Wb, C=3, has_bias=True,
+                            aux_channels=(4,), use_pallas=False)
+    j0 = jst.init_state(jcfg, img, bias=bias, aux=(aux,))
+    jk = jeng.extend_map(jcfg, j0, jnp.int32(k))
+    jkm = jeng.extend_map(jcfg, jk, jnp.int32(m))
+
+    fields = dataclasses.asdict(jcfg)
+    tcfg, device = config_from_jax_fields(fields)
+    t = teng.extend_map(tcfg, state_from_numpy(fields, _to_numpy(jk),
+                                               device), m)
+    for name in ("vs", "cur_b", "cur_bias"):
+        np.testing.assert_array_equal(getattr(t, name).numpy(),
+                                      np.asarray(getattr(jkm, name)))
+    for target in (w - k - m, w - 3, w + 17):
+        want = jeng.materialize_all(jcfg, jkm, jnp.int32(target), 128)
+        got = teng.materialize_all(tcfg, t, target, 128)
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+        np.testing.assert_array_equal(got[3][0].numpy(),
+                                      np.asarray(want[3][0]))
+
+
 def test_round_trip_and_presence_checks():
     rng = np.random.default_rng(4)
     H, w, Wb = 8, 30, 128

@@ -42,24 +42,29 @@ def test_energy_matches_jax(nrg, C):
                                       err_msg=f"w={ww}")
 
 
-def _states(img, Wb, delta_x, rigidity):
+def _states(img, Wb, delta_x, rigidity, bias=None):
     H, w, C = img.shape
-    kw = dict(H=H, Wb=Wb, C=C, delta_x=delta_x, has_rig=rigidity > 0)
+    kw = dict(H=H, Wb=Wb, C=C, delta_x=delta_x, has_rig=rigidity > 0,
+              has_bias=bias is not None)
     jcfg = jst.EngineConfig(use_pallas=False, **kw)
     tcfg = tst.EngineConfig(**kw)
     rig = (np.full((H, w), np.float32(rigidity), np.float32)
            if rigidity > 0 else None)
-    return (jcfg, jst.init_state(jcfg, img, rig=rig),
-            tcfg, tst.init_state(tcfg, img, rig=rig))
+    return (jcfg, jst.init_state(jcfg, img, bias=bias, rig=rig),
+            tcfg, tst.init_state(tcfg, img, bias=bias, rig=rig))
 
 
+@pytest.mark.parametrize("has_bias", [False, True])
 @pytest.mark.parametrize("delta_x", [1, 2])
 @pytest.mark.parametrize("rigidity", [0.0, 3.0])
-def test_extend_and_materialize_match_jax(delta_x, rigidity):
+def test_extend_and_materialize_match_jax(delta_x, rigidity, has_bias):
     rng = np.random.default_rng(delta_x * 7 + int(rigidity))
     H, w, Wb, k = 24, 200, 256, 40
     img = _quantized(rng, H, w, 3)
-    jcfg, jst0, tcfg, tst0 = _states(img, Wb, delta_x, rigidity)
+    # a random f32 bias quantized to eighths: ties on purpose
+    bias = (np.round(rng.standard_normal((H, w)) * 4).astype(np.float32)
+            * np.float32(0.125) if has_bias else None)
+    jcfg, jst0, tcfg, tst0 = _states(img, Wb, delta_x, rigidity, bias)
 
     jst1 = jeng.extend_map(jcfg, jst0, jnp.int32(k))
     tst1 = teng.extend_map(tcfg, tst0, k)
@@ -70,18 +75,25 @@ def test_extend_and_materialize_match_jax(delta_x, rigidity):
     if rigidity:
         np.testing.assert_array_equal(tst1.cur_rig.numpy(),
                                       np.asarray(jst1.cur_rig))
+    if has_bias:
+        np.testing.assert_array_equal(tst1.cur_bias.numpy(),
+                                      np.asarray(jst1.cur_bias))
 
     out_Wb = 256
     for target in (w - k, w - 13, w, w + 9, w + k):
-        j_img, _, j_rig, _ = jeng.materialize_all(jcfg, jst1,
-                                                  jnp.int32(target), out_Wb)
+        j_img, j_bias, j_rig, _ = jeng.materialize_all(
+            jcfg, jst1, jnp.int32(target), out_Wb)
         t_img, t_bias, t_rig, t_aux = teng.materialize_all(tcfg, tst1,
                                                            target, out_Wb)
-        assert t_img.dtype == torch.uint8 and t_bias is None and t_aux == ()
+        assert t_img.dtype == torch.uint8 and t_aux == ()
         np.testing.assert_array_equal(t_img.numpy(), np.asarray(j_img),
                                       err_msg=f"w={target}")
         if rigidity:
             np.testing.assert_array_equal(t_rig.numpy(), np.asarray(j_rig))
+        if has_bias:
+            np.testing.assert_array_equal(t_bias.numpy(), np.asarray(j_bias))
+        else:
+            assert t_bias is None
 
 
 def test_materialize_out_width_and_channels():
