@@ -11,23 +11,37 @@ Phases, one line each (any failure exits non-zero):
 3. kernels — each kernel against its plain PyTorch version on the same
              CUDA inputs, bit-exact (tolerance 0). DP and backtrack:
              2048x2048 at delta_x=1 with both side preferences, delta_x=2
-             with rigidity, and a Wb=384 shape; a launch the card refuses
-             (oversize Wb) must raise. The resident kernel: 1024x768 with
-             bias and rigidity under GRAD_XABS and GRAD_NORM (128 seams),
-             delta_x=2 with rigidity, 512x384 without masks, and a partial
-             chunk (72 seams at depth 128). Kernel and plain times at
-             2048x2048 (DP, backtrack) and 1024x768 with masks (resident).
-4. slice   — the paths through the public Carver surface, each with the
-             launch counts set to 0 just before it and read just after:
-             2048x2048, 100 seams (the per-seam kernels, no resident
-             launch); cfg2, 1024x768 with preservation, discard and
-             rigidity masks and an RGBA aux image, 100 seams and then 300
-             (the resident kernel only); cfg1, 512x384, 100 seams. Each
-             visibility map must equal the C++ reference carver's bit for
-             bit, each image (and aux image) its materialization u8 for u8.
-5. timing  — 100 seams through extend_map on fresh images, synchronized:
-             the per-seam route at 2048x2048, both routes at 1024x768 with
-             masks and at 512x384.
+             with rigidity, a Wb=384 shape, and Wb=32768 (the DP's
+             frontier in global scratch); a bad argument (delta_x=64) must
+             raise. The resident kernel: 1024x768 with bias and rigidity
+             under GRAD_XABS and GRAD_NORM (128 seams), delta_x=2 with
+             rigidity, 512x384 without masks, and a partial chunk (72 seams
+             at depth 128). Its batched entry, with bias and rigidity, at
+             the padded shapes of the batch paths below: four maps at
+             360x640 (per-map width, seam count, one of them 0, and true
+             height), three at 480x640 and two at 1024x1024. dp_block: R=32
+             rows at the
+             2048^2 shard width on four shards (512 + 2*32*delta_x), delta_x
+             1 and 2, rigidity on and off, `first` on and off. Kernel and
+             plain times at the shapes of the paths below.
+4. slice   — the paths through the public surfaces, each with the launch
+             counts set to 0 just before it and read just after: Carver at
+             2048x2048, 100 seams (the per-seam kernels); cfg2, 1024x768
+             with preservation, discard and rigidity masks and an RGBA aux
+             image, 100 then 300 seams (the resident kernel); cfg1,
+             512x384, 100 seams; BatchCarver on cfg5 (300 frames of
+             640x360, GAP's keyframed 0..160 seams) and one cfg4 wave (256
+             images of 1024x1024, 256 seams each) on the batched resident
+             kernel; a ragged BatchCarver of 8 images with masks and an
+             RGBA aux image; and the column-sharded BatchCarver, 2048x2048
+             on 4 column shards of the one card, 100 seams (dp_block and the
+             backtrack kernel). Each visibility map must equal the C++
+             reference carver's bit for bit, each image (and aux image) its
+             materialization u8 for u8.
+5. timing  — synchronized, median of 3 fresh runs: 100 seams through
+             extend_map at 2048x2048, both routes at 1024x768 with masks
+             and at 512x384; img_seams/s of BatchCarver.carve on cfg5 and
+             on the cfg4 wave; us/seam of the column-sharded 2048x2048.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -48,6 +62,12 @@ SEAMS = 100
 CFG1 = (384, 512)     # (h, w) of scripts/bench_all.py's cfg1, no masks
 CFG2 = (768, 1024)    # cfg2: preservation, discard and rigidity masks
 RIGIDITY = 100.0      # cfg2's global rigidity
+CFG5 = (360, 640, 300, 160)   # (h, w) of a GAP frame, frames, last seams
+CFG4 = (1024, 1024, 256, 256)  # (h, w), images in one wave, seams each
+SHARDS = 4            # column shards of the one card
+# the ragged batch: (h, w, seams) of each image
+RAGGED = ((360, 640, 60), (300, 512, 40), (480, 600, 100), (200, 384, 30),
+          (360, 560, 90), (240, 320, 50), (480, 640, 80), (128, 256, 20))
 
 
 def say(phase: str, msg: str) -> None:
@@ -145,7 +165,7 @@ def check_kernels(device, n: int) -> dict:
     times."""
     import torch
     from lqr_tpu_torch.core.energy import energy_from_plane, reader_plane
-    from lqr_tpu_torch.ops import dp_cuda
+    from lqr_tpu_torch.ops import _build, dp_cuda
 
     img = torch.from_numpy(make_test_image(n)).to(device)
     e_main = energy_from_plane(reader_plane(img, 0), n, 0)
@@ -173,14 +193,40 @@ def check_kernels(device, n: int) -> dict:
         err["dp_forward"] = max(err["dp_forward"], e_dp)
         err["backtrack"] = max(err["backtrack"], e_bt)
 
-    # a launch the card refuses must raise, never fall back
-    big = torch.zeros((2, 32768), dtype=torch.float32, device=device)
+    # a map wider than two frontier rows of shared memory: the same
+    # kernel with its frontier in a global scratch
+    e_w, _ = _random_case(256, 32760, 32768, 1, False, 7, device)
+    if dp_cuda.frontier_scratch(32768, device) is None:
+        raise AssertionError("Wb=32768 should not fit shared memory")
+    for pref in (True, False):
+        M_k, bp_k = dp_cuda.dp_forward(e_w, None, pref, 1, False)
+        M_p, bp_p = dp_cuda.dp_forward_plain(e_w, None, pref, 1, False)
+        torch.cuda.synchronize()
+        e_dp = max(_max_err(M_k, M_p), _max_err(bp_k, bp_p))
+        say("kernels", f"wide H=256 Wb=32768 delta_x=1 pref_left={pref} "
+            f"(frontier in global scratch): dp_forward max_abs_err={e_dp} "
+            f"(tolerance 0)")
+        if e_dp != 0.0:
+            raise AssertionError("wide dp_forward differs from plain")
+
+    # a bad argument never launches: the launcher refuses delta_x = 64
+    lib = _build.load()
+    before = dict(dp_cuda.LAUNCHES)
+    m = torch.empty(256, device=device)
+    bp = torch.empty((2, 256), dtype=torch.int8, device=device)
+    rigc = torch.zeros(65, device=device)
+    rc = lib.lqr_dp_forward(e_main.data_ptr(), None, rigc.data_ptr(), 1, 64,
+                            2, 256, 2, m.data_ptr(), bp.data_ptr(), None,
+                            torch.cuda.current_stream().cuda_stream)
     try:
-        dp_cuda.dp_forward(big, None, True, 1, False)
+        _build.check(lib, rc, "lqr_dp_forward")
     except RuntimeError as exc:
-        say("kernels", f"oversize Wb=32768 refused as it must: {exc}")
+        say("kernels", f"delta_x=64 refused as it must: {exc}")
     else:
-        raise AssertionError("oversize Wb launch did not raise")
+        raise AssertionError("a delta_x=64 launch did not raise")
+    torch.cuda.synchronize()
+    if dp_cuda.LAUNCHES != before:
+        raise AssertionError("a refused launch was counted")
 
     M_p, bp_p = dp_cuda.dp_forward_plain(e_main, None, True, 1, False)
     ms = {
@@ -188,6 +234,8 @@ def check_kernels(device, n: int) -> dict:
             lambda: dp_cuda.dp_forward(e_main, None, True, 1, False), 20),
         "backtrack": _cuda_ms(
             lambda: dp_cuda.backtrack(M_p, bp_p, True), 20),
+        "dp_forward wide": _cuda_ms(
+            lambda: dp_cuda.dp_forward(e_w, None, True, 1, False), 20),
     }
     plain_ms = {
         "dp_forward": _cuda_ms(
@@ -195,9 +243,12 @@ def check_kernels(device, n: int) -> dict:
             2),
         "backtrack": _cuda_ms(
             lambda: dp_cuda.backtrack_plain(M_p, bp_p, True), 2),
+        "dp_forward wide": _cuda_ms(
+            lambda: dp_cuda.dp_forward_plain(e_w, None, True, 1, False), 2),
     }
     for k in ms:
-        say("kernels", f"{k} at {n}x{n}: kernel {ms[k]:.4f} ms, plain "
+        shape = "256x32768" if k.endswith("wide") else f"{n}x{n}"
+        say("kernels", f"{k} at {shape}: kernel {ms[k]:.4f} ms, plain "
             f"{plain_ms[k]:.4f} ms")
     return {"err": err, "ms": ms, "plain_ms": plain_ms}
 
@@ -285,8 +336,9 @@ def _expect_launches(label, launches, want):
         raise AssertionError(f"{label}: launches {launches}, expected {want}")
 
 
-def run_main_slice(device, n: int, seams: int) -> dict:
-    """Phase 4: the 2048x2048 main path through the public Carver."""
+def run_main_slice(device, n: int, seams: int):
+    """Phase 4: the 2048x2048 main path through the public Carver. Returns
+    its launch counts and the visibility map (equal to native.carve's)."""
     import lqr_tpu_torch
     from lqr_tpu_torch import native
     from lqr_tpu_torch.ops import dp_cuda
@@ -304,14 +356,13 @@ def run_main_slice(device, n: int, seams: int) -> dict:
     ref_secs = time.perf_counter() - t1
     _check_carve("main", img, carver.vmap_dump().data, out, vs_ref,
                  n - seams)
-    _expect_launches("main", launches, {"dp_forward": seams,
-                                        "backtrack": seams,
-                                        "carve_resident": 0})
+    _expect_launches("main", launches, _only(dp_forward=seams,
+                                             backtrack=seams))
     say("slice", f"Carver.resize({n - seams}, {n}) + get_image on {n}x{n}: "
         f"{secs:.3f} s incl. first calls; vs == native.carve, image == "
         f"native.materialize (C++ reference took {ref_secs:.1f} s); "
         f"launches {launches}")
-    return launches
+    return launches, vs_ref
 
 
 def run_cfg2(device) -> dict:
@@ -347,8 +398,7 @@ def run_cfg2(device) -> dict:
         want = np.where(vs_ref <= n, vs_ref, 0)
         _check_carve(f"cfg2 {n} seams", d["img"], vs, out, want, w - n,
                      d["aux"], aux_out)
-    _expect_launches("cfg2", launches, {"dp_forward": 0, "backtrack": 0,
-                                        "carve_resident": 3})
+    _expect_launches("cfg2", launches, _only(carve_resident=3))
     say("slice", f"cfg2 {w}x{h} bias(+1000, -800) + rigmask + RGBA aux, "
         f"rigidity {RIGIDITY}: resize to {w - 100} then {w - 300} + "
         f"get_image + get_aux: {secs:.3f} s incl. first calls; vs == "
@@ -372,8 +422,7 @@ def run_cfg1(device, seams: int) -> dict:
     launches = dict(dp_cuda.LAUNCHES)
     _check_carve("cfg1", img, carver.vmap_dump().data, out,
                  native.carve(img, seams), w - seams)
-    _expect_launches("cfg1", launches, {"dp_forward": 0, "backtrack": 0,
-                                        "carve_resident": 1})
+    _expect_launches("cfg1", launches, _only(carve_resident=1))
     say("slice", f"cfg1 {w}x{h}: resize to {w - seams}: vs == native.carve,"
         f" image == native.materialize; launches {launches}")
     return launches
@@ -418,6 +467,335 @@ def time_routes(device, label, hw, routes, seams, gpu, bias=None,
     return per_seam
 
 
+def check_dp_block(device) -> dict:
+    """Phase 3: dp_block against its plain version at the column-sharded
+    2048^2 path's shape: R = 32 rows over a shard of 512 columns extended
+    by G = 32 * delta_x lanes each side, +inf at one mesh edge."""
+    import torch
+    from lqr_tpu_torch.ops import dp_block as db
+
+    R, Wl = 32, N // SHARDS
+    err, seed = 0.0, 40
+    for dx in (1, 2):
+        G = R * dx
+        We = Wl + 2 * G
+        for has_rig in (False, True):
+            seed += 1
+            e, rig = _random_case(R, We - G, We, dx, has_rig, seed, device)
+            m0 = torch.from_numpy(np.round(np.random.default_rng(seed).random(
+                We, np.float32) * 8) / 8).to(device)
+            m0[We - G:] = torch.inf
+            for first in (False, True):
+                for pref in (True, False):
+                    got = db.dp_block(m0, e, rig, pref, first, dx, has_rig, N)
+                    want = db.dp_block_plain(m0, e, rig, pref, first, dx,
+                                             has_rig, N)
+                    torch.cuda.synchronize()
+                    e_b = max(_max_err(got[0], want[0]),
+                              _max_err(got[1], want[1]))
+                    err = max(err, e_b)
+                    if e_b != 0.0:
+                        raise AssertionError(
+                            f"dp_block differs from plain: {dx=} {has_rig=} "
+                            f"{first=} {pref=}")
+            say("kernels", f"dp_block R={R} We={We} delta_x={dx} "
+                f"rig={has_rig}, first on/off, both sides: max_abs_err="
+                f"{err} (tolerance 0)")
+    G = R
+    e, _ = _random_case(R, Wl + G, Wl + 2 * G, 1, False, 50, device)
+    m0 = e[0].flip(0).contiguous()
+    ms = _cuda_ms(lambda: db.dp_block(m0, e, None, True, False, 1, False, N),
+                  50)
+    plain_ms = _cuda_ms(lambda: db.dp_block_plain(m0, e, None, True, False,
+                                                  1, False, N), 3)
+    say("kernels", f"dp_block R={R} We={Wl + 2 * G} delta_x=1: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def _batched_case(device, sizes, kc, delta_x, rigidity, seed):
+    """The batched resident entry and its plain version (the per-map loop of
+    the resident kernel's plain version) on one batch of the given (h, w)
+    sizes with bias and rigidity, padded as BatchCarver pads it. Returns
+    (max_abs_err over hist and every plane, plain ms, the kernel's call)."""
+    import torch
+    from lqr_tpu_torch.core import engine
+    from lqr_tpu_torch.ops import carve_resident as cr
+    from lqr_tpu_torch.parallel import batch
+
+    rng = np.random.default_rng(seed)
+    imgs = [crop_image(hw, seed=seed + i) for i, hw in enumerate(sizes)]
+    bc = batch.BatchCarver(
+        imgs, delta_x=delta_x, rigidity=rigidity, device=device,
+        biases=[np.round(rng.standard_normal(hw) * 4).astype(np.float32) / 8
+                for hw in sizes],
+        rigmasks=[rng.random(hw).astype(np.float32) for hw in sizes])
+    st = bc.state
+    B, H, Wb = st.vs.shape
+    pm = batch._posmap_batched(st.vs, st.ref_w)
+    rigc = torch.from_numpy(batch.rigc_table(bc.heights, delta_x)).to(device)
+    d0 = [0] * B
+    args = (st.cur_b, st.cur_bias, st.cur_rig, pm, bc.widths, d0, kc,
+            bc.heights, rigc, delta_x, True, True, 0, 2, engine.KC)
+    got = cr.carve_chunk_resident_batched(*args)
+    params = cr._batched_params(B, H, Wb, bc.widths, d0, kc, bc.heights,
+                                engine.KC)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    want = cr.carve_chunk_resident_batched_plain(
+        st.cur_b, st.cur_bias, st.cur_rig, pm, params, rigc, delta_x, True,
+        True, 0, 2, engine.KC)
+    t1.record()
+    torch.cuda.synchronize()
+    err = max(_max_err(g, w) for g, w in zip(got, want))
+    say("kernels", f"carve_resident_batched B={B} H={H} Wb={Wb} heights="
+        f"{bc.heights.tolist()} widths={bc.widths.tolist()} kc={kc} "
+        f"delta_x={delta_x} bias+rig: max_abs_err={err} (tolerance 0)")
+    if err != 0.0:
+        raise AssertionError(f"carve_resident_batched differs from plain at "
+                             f"B={B} H={H} Wb={Wb}")
+    return err, t0.elapsed_time(t1), (
+        lambda: cr.carve_chunk_resident_batched(*args))
+
+
+def check_resident_batched(device) -> dict:
+    """Phase 3: the batched resident entry against its plain version, one
+    launch per batch, at the shapes its three paths give it: a ragged batch
+    of four maps padded to cfg5's 360x640 (per-map width, seam count, one
+    of them 0, and true height; delta_x=2); three maps padded to the ragged
+    phase's 480x640; two maps at the cfg4 wave's 1024x1024 (1024 threads a
+    block)."""
+    kc = [32, 0, 20, 25]
+    err, plain_ms, launch = _batched_case(
+        device, [(360, 640), (300, 600), (200, 500), (360, 620)], kc, 2,
+        20.0, 0)
+    ms = _cuda_ms(launch, 3)
+    say("kernels", f"carve_resident_batched, that batch ({sum(kc)} seams): "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    for sizes, kcs, seed in (([(480, 600), (128, 640), (300, 256)],
+                              [24, 12, 16], 10),
+                             ([(1024, 1024)] * 2, [8, 6], 20)):
+        e, _, _ = _batched_case(device, sizes, kcs, 1, RIGIDITY, seed)
+        err = max(err, e)
+    return {"err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def _launches() -> dict:
+    from lqr_tpu_torch.ops import dp_cuda
+    return dict(dp_cuda.LAUNCHES)
+
+
+def _only(**counts) -> dict:
+    """Every kernel's expected launch count: the given ones, else 0."""
+    return {k: counts.get(k, 0) for k in _launches()}
+
+
+def _round_half_away(x: float) -> int:
+    """GIMP's ROUND() of a non-negative value (GAP's keyframe law)."""
+    return int(np.floor(x + 0.5))
+
+
+def cfg5_inputs():
+    """cfg5 of scripts/bench_all.py: 300 rolled copies of one 640x360 test
+    image (frame i rolled by (i, 2i)), and GAP's keyframed seam counts from
+    0 (frame 0) to 160 (the last frame): round(160 * f / 299)."""
+    h, w, n, top = CFG5
+    base = crop_image((h, w))
+    frames = np.stack([np.roll(base, (i, 2 * i), axis=(0, 1))
+                       for i in range(n)])
+    counts = np.array([_round_half_away(top * f / (n - 1))
+                       for f in range(n)], np.int64)
+    return frames, counts
+
+
+def cfg4_inputs(seed: int = 0) -> np.ndarray:
+    """One cfg4 wave: 256 copies of a 1024x1024 test image, each rolled by
+    random (dy, dx) in [0, 64), pre-stacked [256, 1024, 1024, 3] u8."""
+    h, w, B, _ = CFG4
+    base = make_test_image(w, seed=10)[:h]
+    r = np.random.default_rng(seed)
+    return np.stack([np.roll(base, (int(dy), int(dx)), axis=(0, 1))
+                     for dy, dx in zip(r.integers(0, 64, B),
+                                       r.integers(0, 64, B))])
+
+
+def run_cfg5(device, frames, counts) -> dict:
+    """Phase 4: BatchCarver on cfg5's 300 frames; images_at against the C++
+    reference on the deepest frame and two others."""
+    import torch
+    from lqr_tpu_torch import native
+    from lqr_tpu_torch.parallel import BatchCarver
+
+    h, w = frames.shape[1:3]
+    bc = BatchCarver(frames, device=device)
+    reset_launches()
+    bc.carve(counts)
+    torch.cuda.synchronize()
+    launches = _launches()
+    _expect_launches("cfg5", launches, _only(carve_resident_batched=2))
+    outs = bc.images_at(w - counts)
+    checked = (len(frames) - 1, len(frames) // 2, len(frames) // 8)
+    for f in checked:
+        n = int(counts[f])
+        vs = bc.state.vs[f, :, :w].cpu().numpy()
+        _check_carve(f"cfg5 frame {f}", frames[f], vs, outs[f],
+                     native.carve(frames[f], n), w - n)
+    say("slice", f"cfg5 BatchCarver on {len(frames)} frames of {w}x{h}, "
+        f"keyframed 0..{int(counts.max())} seams ({int(counts.sum())} in "
+        f"all): vs == native.carve and images_at == native.materialize on "
+        f"frames {checked}; launches {launches}")
+    return launches
+
+
+def run_cfg4(device, arr) -> dict:
+    """Phase 4: one cfg4 wave through BatchCarver (the pre-stacked ndarray,
+    used as it is); vs against the C++ reference on two images."""
+    import torch
+    from lqr_tpu_torch import native
+    from lqr_tpu_torch.parallel import BatchCarver
+
+    B, h, w = arr.shape[:3]
+    seams = CFG4[3]
+    bc = BatchCarver(arr, device=device)
+    reset_launches()
+    bc.carve(seams)
+    torch.cuda.synchronize()
+    launches = _launches()
+    _expect_launches("cfg4", launches, _only(carve_resident_batched=2))
+    for i in (0, B - 1):
+        vs = bc.state.vs[i, :, :w].cpu().numpy()
+        if not np.array_equal(vs, native.carve(arr[i], seams)):
+            raise AssertionError(f"cfg4 image {i}: vs differs from native")
+    say("slice", f"cfg4 wave: BatchCarver on {B} images of {w}x{h}, {seams} "
+        f"seams each: vs == native.carve on images 0 and {B - 1}; launches "
+        f"{launches}")
+    return launches
+
+
+def ragged_inputs() -> dict:
+    """Eight images of mixed sizes, each with cfg2's masks (preservation
+    +1000 on its second quarter, discard -800 on its bottom-right quarter,
+    a random grey rigidity mask on its left third) and an RGBA aux image;
+    the bias and rig planes a Carver builds from them."""
+    from lqr_tpu_torch.carver import place_mask_numpy
+    sizes = [(h, w) for h, w, _ in RAGGED]
+    rng = np.random.default_rng(12)
+    d = {"sizes": sizes, "seams": np.array([n for _, _, n in RAGGED]),
+         "img": [], "pres": [],
+         "disc": [], "rigm": [], "aux": [], "bias": [], "rig": []}
+    for i, (h, w) in enumerate(sizes):
+        d["img"].append(crop_image((h, w), seed=20 + i))
+        pres = rng.integers(160, 256, (h // 4, w // 4, 3)).astype(np.uint8)
+        disc = np.full((h - h // 2, w - w // 2, 3), 255, np.uint8)
+        rigm = rng.integers(0, 256, (h, w // 3)).astype(np.uint8)
+        d["pres"].append(pres)
+        d["disc"].append(disc)
+        d["rigm"].append(rigm)
+        d["aux"].append(rng.integers(0, 256, (h, w, 4)).astype(np.uint8))
+        d["bias"].append(
+            place_mask_numpy(pres, h, w, w // 4, h // 4) * np.float32(1.0)
+            + place_mask_numpy(disc, h, w, w // 2, h // 2)
+            * np.float32(-0.8))
+        d["rig"].append(place_mask_numpy(rigm, h, w, 0, 0))
+    return d
+
+
+def run_ragged(device) -> dict:
+    """Phase 4: a ragged BatchCarver with masks and aux images; each image
+    equal to its solo Carver and to the C++ reference."""
+    import torch
+    import lqr_tpu_torch
+    from lqr_tpu_torch import native
+    from lqr_tpu_torch.parallel import BatchCarver
+
+    d = ragged_inputs()
+    bc = BatchCarver(d["img"], rigidity=RIGIDITY, biases=d["bias"],
+                     rigmasks=d["rig"], aux=[[a] for a in d["aux"]],
+                     device=device)
+    n = d["seams"]
+    reset_launches()
+    bc.carve(n)
+    torch.cuda.synchronize()
+    launches = _launches()
+    _expect_launches("ragged", launches, _only(carve_resident_batched=1))
+    vs_all = bc.state.vs.cpu().numpy()
+    outs, auxs = bc.images_at(bc.widths - n), bc.aux_at(bc.widths - n)
+    for i, (h, w) in enumerate(d["sizes"]):
+        img, k = d["img"][i], int(n[i])
+        solo = lqr_tpu_torch.Carver(img, rigidity=RIGIDITY, device=device)
+        solo.bias_add(d["pres"][i], 1000.0, w // 4, h // 4)
+        solo.bias_add(d["disc"][i], -800.0, w // 2, h // 2)
+        solo.rigmask_add(d["rigm"][i])
+        solo.attach(d["aux"][i])
+        solo.resize(w - k, h)
+        if not np.array_equal(vs_all[i, :h, :w], solo.vmap_dump().data):
+            raise AssertionError(f"ragged image {i}: vs differs from its "
+                                 f"solo Carver")
+        vs_ref = native.carve(img, k, bias=d["bias"][i],
+                              rig=d["rig"][i] * np.float32(RIGIDITY))
+        _check_carve(f"ragged image {i}", img, vs_all[i, :h, :w], outs[i],
+                     vs_ref, w - k, d["aux"][i], auxs[i][0])
+    say("slice", f"ragged BatchCarver on {len(d['sizes'])} images "
+        f"{d['sizes']} with masks, rigidity {RIGIDITY} and RGBA aux, seams "
+        f"{n.tolist()}: vs == each solo Carver == native.carve, images and "
+        f"aux == native.materialize; launches {launches}")
+    return launches
+
+
+def run_sharded(device, vs_main) -> dict:
+    """Phase 4: the column-sharded resize, 2048x2048 on four column shards
+    of the one card, 100 seams; vs equal to the unsharded Carver's (which
+    equals native.carve) and the image to native.materialize."""
+    import torch
+    from lqr_tpu_torch import native
+    from lqr_tpu_torch.parallel import BatchCarver, make_mesh
+    from lqr_tpu_torch.parallel.sharding import _block_rows
+
+    img = make_test_image(N)
+    mesh = make_mesh(devices=[device] * SHARDS, data=1)
+    bc = BatchCarver([img], mesh=mesh)
+    if not bc.col_sharded:
+        raise AssertionError("the mesh did not shard columns")
+    reset_launches()
+    bc.carve(SEAMS)
+    torch.cuda.synchronize()
+    launches = _launches()
+    R = _block_rows(N, 1, N // SHARDS)
+    _expect_launches("sharded", launches,
+                     _only(dp_block=SEAMS * (N // R) * SHARDS,
+                           backtrack=SEAMS))
+    _check_carve("sharded", img, bc.state.vs[0, :, :N].cpu().numpy(),
+                 bc.images_at(N - SEAMS)[0], vs_main, N - SEAMS)
+    say("slice", f"column-sharded BatchCarver, {N}x{N} on {SHARDS} column "
+        f"shards of {device}, {SEAMS} seams ({R} rows per halo exchange): "
+        f"vs == the unsharded Carver's == native.carve, image == "
+        f"native.materialize; launches {launches}")
+    return launches
+
+
+def _median_runs(label, make, run, unit_count, unit, gpu) -> float:
+    """Median seconds of three synchronized runs, each on fresh state from
+    make() (outside the timed window), after a warm-up."""
+    import torch
+    secs = []
+    for i in range(4):
+        obj = make()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(obj)
+        torch.cuda.synchronize()
+        if i:
+            secs.append(time.perf_counter() - t0)
+        del obj
+    med = statistics.median(secs)
+    rate = (f"{unit_count / med:.1f} img_seams/s" if unit == "img_seams"
+            else f"{med / unit_count * 1e6:.1f} us/seam")
+    say("timing", f"{label}: runs {[round(x, 5) for x in secs]} s; median "
+        f"{med:.5f} s = {rate} on {gpu}")
+    return med
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -445,10 +823,23 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s -> {_build.SO.name}")
 
     k = check_kernels(device, N)
-    r = check_resident(device)
-    launches = run_main_slice(device, N, SEAMS)
+    for kname, check in (("carve_resident", check_resident),
+                         ("carve_resident_batched", check_resident_batched),
+                         ("dp_block", check_dp_block)):
+        r = check(device)
+        for key in ("err", "ms", "plain_ms"):
+            k[key][kname] = r[key]
+
+    launches, vs_main = run_main_slice(device, N, SEAMS)
     launches["carve_resident"] = run_cfg2(device)["carve_resident"]
     run_cfg1(device, SEAMS)
+    frames, counts = cfg5_inputs()
+    launches["carve_resident_batched"] = run_cfg5(
+        device, frames, counts)["carve_resident_batched"]
+    wave = cfg4_inputs()
+    run_cfg4(device, wave)
+    run_ragged(device)
+    launches["dp_block"] = run_sharded(device, vs_main)["dp_block"]
 
     time_routes(device, f"{N}x{N}", (N, N), [engine.extend_map], SEAMS, gpu)
     routes = [engine._extend_resident, engine._extend_per_seam]
@@ -456,16 +847,33 @@ def main() -> int:
     time_routes(device, "1024x768 with bias and rig", CFG2, routes, SEAMS,
                 gpu, c2["bias"], c2["rig"])
     time_routes(device, "512x384", CFG1, routes, SEAMS, gpu)
+    from lqr_tpu_torch.parallel import BatchCarver, make_mesh
+    _median_runs(f"cfg5 BatchCarver.carve, {len(frames)} frames of 640x360, "
+                 f"{int(counts.sum())} img_seams",
+                 lambda: BatchCarver(frames, device=device),
+                 lambda bc: bc.carve(counts), int(counts.sum()), "img_seams",
+                 gpu)
+    _median_runs(f"cfg4 wave BatchCarver.carve, {len(wave)} images of "
+                 f"1024x1024, {CFG4[3]} seams each",
+                 lambda: BatchCarver(wave, device=device),
+                 lambda bc: bc.carve(CFG4[3]), len(wave) * CFG4[3],
+                 "img_seams", gpu)
+    del wave
+    img = make_test_image(N)
+    mesh = make_mesh(devices=[device] * SHARDS, data=1)
+    _median_runs(f"column-sharded {N}x{N} on {SHARDS} shards of one card, "
+                 f"{SEAMS} seams", lambda: BatchCarver([img], mesh=mesh),
+                 lambda bc: bc.carve(SEAMS), SEAMS, "seam", gpu)
 
-    k["err"]["carve_resident"] = r["err"]
-    k["ms"]["carve_resident"] = r["ms"]
-    k["plain_ms"]["carve_resident"] = r["plain_ms"]
     replaces = {"dp_forward": "lqr_tpu/ops/dp_pallas.py:351",
                 "backtrack": "lqr_tpu/ops/dp_pallas.py:547",
-                "carve_resident": "lqr_tpu/ops/carve_resident.py:178"}
+                "carve_resident": "lqr_tpu/ops/carve_resident.py:178",
+                "carve_resident_batched": "lqr_tpu/ops/carve_resident.py:178",
+                "dp_block": "lqr_tpu/ops/dp_block.py:44"}
+    sources = {"carve_resident_batched": "carve_resident"}
     kernels = [{
         "name": kname, "route": "cuda",
-        "source": f"lqr_tpu_torch/csrc/{kname}.cu",
+        "source": f"lqr_tpu_torch/csrc/{sources.get(kname, kname)}.cu",
         "replaces": replaces[kname],
         "launches": launches[kname],
         "max_abs_err": k["err"][kname],

@@ -3,8 +3,9 @@
 The JAX package's ``EngineConfig`` and ``MapState``, pulled to plain Python
 and numpy (``dataclasses.asdict(cfg)``; each state field through
 ``np.asarray``), map to the port's and back, so a map carved part-way by
-one can be extended and materialized by the other. Nothing here imports
-jax: the exchange format is numpy.
+one can be extended and materialized by the other; batched states
+(``lqr_tpu.parallel.batch``) likewise. Nothing here imports jax: the
+exchange format is numpy.
 """
 
 from __future__ import annotations
@@ -34,37 +35,68 @@ def config_from_jax_fields(fields: dict) -> tuple[EngineConfig, str]:
     return EngineConfig(**f), device
 
 
-def state_from_numpy(cfg_fields: dict, arrays: dict, device) -> MapState:
-    """The port's MapState from a JAX MapState pulled to numpy.
-
-    arrays: {ref, bias, rig, vs, aux, cur_b, cur_bias, cur_rig, ref_w,
-    depth}; bias/rig/cur_bias/cur_rig are None when the config has no
-    bias/rigidity."""
+def _state_from_numpy(cfg_fields: dict, arrays: dict, device,
+                      batched: bool) -> MapState:
     cfg, _ = config_from_jax_fields(cfg_fields)
+    lead = 1 if batched else 0
 
     def plane(name):
         a = arrays.get(name)
         if a is None:
             return None
         a = np.asarray(a, _DTYPES.get(name, np.float32))
-        if a.shape[:2] != (cfg.H, cfg.Wb):
+        if a.shape[lead:lead + 2] != (cfg.H, cfg.Wb):
             raise ValueError(f"{name}: shape {a.shape}, expected "
-                             f"({cfg.H}, {cfg.Wb}, ...)")
+                             f"(H, Wb) = ({cfg.H}, {cfg.Wb}) at axis {lead}")
         return _tensor(a, device)
 
+    if batched:
+        ref_w = np.array(arrays["ref_w"], np.int64).reshape(-1)
+        depth = np.array(arrays["depth"], np.int64).reshape(-1)
+    else:
+        ref_w, depth = int(arrays["ref_w"]), int(arrays["depth"])
     st = MapState(
         ref=plane("ref"), bias=plane("bias"), rig=plane("rig"),
         vs=plane("vs"),
         aux=tuple(_tensor(np.asarray(a, np.uint8), device)
                   for a in arrays.get("aux", ())),
         cur_b=plane("cur_b"), cur_bias=plane("cur_bias"),
-        cur_rig=plane("cur_rig"),
-        ref_w=int(arrays["ref_w"]), depth=int(arrays["depth"]))
+        cur_rig=plane("cur_rig"), ref_w=ref_w, depth=depth)
     for name, flag in (("bias", cfg.has_bias), ("cur_bias", cfg.has_bias),
                        ("rig", cfg.has_rig), ("cur_rig", cfg.has_rig)):
         if (getattr(st, name) is not None) != flag:
             raise ValueError(f"{name} presence does not match the config")
+    if batched:
+        B = st.vs.shape[0]
+        if ref_w.shape != (B,) or depth.shape != (B,):
+            raise ValueError(f"ref_w / depth: expected {B} entries each")
     return st
+
+
+def state_from_numpy(cfg_fields: dict, arrays: dict, device) -> MapState:
+    """The port's MapState from a JAX MapState pulled to numpy.
+
+    arrays: {ref, bias, rig, vs, aux, cur_b, cur_bias, cur_rig, ref_w,
+    depth}; bias/rig/cur_bias/cur_rig are None when the config has no
+    bias/rigidity."""
+    return _state_from_numpy(cfg_fields, arrays, device, batched=False)
+
+
+def batch_state_from_numpy(cfg_fields: dict, arrays: dict, device):
+    """A batched MapState (``lqr_tpu.parallel.batch``: a leading batch axis
+    on every array, ref_w and depth [B]) pulled to numpy, as the port's
+    batched state (``lqr_tpu_torch.parallel.batch``: ref_w and depth host
+    int64 arrays). Returns (state, heights): heights [B] int64 is
+    arrays["heights"], the images' true heights, which the JAX state does
+    not hold (its BatchCarver does); without it every image has cfg.H
+    rows."""
+    st = _state_from_numpy(cfg_fields, arrays, device, batched=True)
+    B, H = st.vs.shape[:2]
+    heights = np.array(arrays.get("heights", np.full(B, H)),
+                       np.int64).reshape(-1)
+    if heights.shape != (B,) or not ((1 <= heights) & (heights <= H)).all():
+        raise ValueError(f"heights: expected {B} entries in 1..{H}")
+    return st, heights
 
 
 def state_to_numpy(st: MapState) -> dict:
@@ -75,4 +107,15 @@ def state_to_numpy(st: MapState) -> dict:
     out["aux"] = tuple(a.cpu().numpy() for a in st.aux)
     out["ref_w"] = np.int32(st.ref_w)
     out["depth"] = np.int32(st.depth)
+    return out
+
+
+def batch_state_to_numpy(st: MapState, heights=None) -> dict:
+    """A batched state of the port as numpy arrays in the JAX MapState's
+    fields (ref_w / depth as int32 [B]), with "heights" when given."""
+    out = state_to_numpy(st._replace(ref_w=0, depth=0))
+    out["ref_w"] = np.asarray(st.ref_w, np.int32)
+    out["depth"] = np.asarray(st.depth, np.int32)
+    if heights is not None:
+        out["heights"] = np.asarray(heights, np.int32)
     return out

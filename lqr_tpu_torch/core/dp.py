@@ -8,6 +8,14 @@ Counterpart of ``lqr_tpu.core.dp``:
 with +inf outside [0, Wb). These are the plain versions of the two CUDA
 kernels in ``ops/dp_cuda.py`` (the kernels are held bit-equal to them on
 the card) and the CPU path: a Python loop over rows, columns vectorized.
+``dp_row`` is one row of the recursion; the column-sharded DP block
+(``ops/dp_block.py``) runs it too.
+
+Ragged batches (``lqr_tpu.core.dp.dp_forward``'s hooks): with the true
+height ``h`` of an image padded to H rows, rows >= h pass the frontier
+through (M = M_prev, bp = 0), so the seam equals the unpadded image's and
+its padded rows carry seam[h - 1]; ``rigc_vec`` ([delta_x + 1] f32, the
+image's f32(m^1.5 / h)) replaces the table of H.
 
 Tie-breaking (SPEC.md §5): candidates are ranked by side preference
 (LEFT: dx = 0, -1, +1, -2, +2, ...; RIGHT: 0, +1, -1, ...) and the
@@ -47,33 +55,52 @@ def rigc_table(delta_x: int, H: int) -> np.ndarray:
                      for m in range(delta_x + 1)], np.float32)
 
 
+def dp_row(M: torch.Tensor, e_row: torch.Tensor, rig_row, order: list,
+           dxs: torch.Tensor, rigc, has_rig: bool):
+    """One DP row: (M_new [W], bp [W] int8) from the previous row M [W].
+    order: the dx candidates in rank order, dxs the same as an int8
+    tensor; rigc[m] = f32(m^1.5 / H)."""
+    W = M.shape[0]
+    d = max(abs(dx) for dx in order)
+    pad = torch.full((d,), torch.inf, dtype=torch.float32, device=M.device)
+    Mp = torch.cat([pad, M, pad])               # Mp[d + x] = M[x]
+    cands = []
+    for dx in order:
+        c = Mp[d + dx:d + dx + W]
+        if has_rig and dx != 0:
+            c = c + rig_row * rigc[abs(dx)]
+        cands.append(c)
+    C = torch.stack(cands)                      # [2d+1, W], rank order
+    best = C.min(dim=0).values
+    first = (C == best).to(torch.uint8).argmax(dim=0)
+    return e_row + best, dxs[first]
+
+
+def rank_setup(delta_x: int, pref_left: bool, device):
+    """(order, dxs) for dp_row."""
+    order = rank_order(delta_x, bool(pref_left))
+    return order, torch.tensor(order, dtype=torch.int8, device=device)
+
+
 def dp_forward(e_tot: torch.Tensor, rig: torch.Tensor | None,
-               pref_left: bool, delta_x: int, has_rig: bool):
+               pref_left: bool, delta_x: int, has_rig: bool, h=None,
+               rigc_vec=None):
     """Run the DP. e_tot: [H, Wb] f32 (+inf at invalid lanes, bias
-    included); rig: [H, Wb] f32 or None. Returns (M_last [Wb] f32,
-    bp [H, Wb] int8), bp[0] = 0."""
+    included); rig: [H, Wb] f32 or None; h: the true height (rows >= h
+    pass through), None for H; rigc_vec: [delta_x + 1] f32 coefficients,
+    None for the table of H. Returns (M_last [Wb] f32, bp [H, Wb] int8),
+    bp[0] = 0."""
     H, Wb = e_tot.shape
     dev = e_tot.device
-    order = rank_order(delta_x, bool(pref_left))
-    dxs = torch.tensor(order, dtype=torch.int8, device=dev)
-    rigc = torch.from_numpy(rigc_table(delta_x, H))
-    d = delta_x
+    order, dxs = rank_setup(delta_x, pref_left, dev)
+    rigc = (torch.from_numpy(rigc_table(delta_x, H)) if rigc_vec is None
+            else torch.as_tensor(rigc_vec, dtype=torch.float32).cpu())
+    hr = H if h is None else int(h)
     bp = torch.zeros((H, Wb), dtype=torch.int8, device=dev)
-    pad = torch.full((d,), torch.inf, dtype=torch.float32, device=dev)
     M = e_tot[0]
-    for y in range(1, H):
-        Mp = torch.cat([pad, M, pad])               # Mp[d + x] = M[x]
-        cands = []
-        for dx in order:
-            c = Mp[d + dx:d + dx + Wb]
-            if has_rig and dx != 0:
-                c = c + rig[y] * rigc[abs(dx)]
-            cands.append(c)
-        C = torch.stack(cands)                      # [2d+1, Wb], rank order
-        best = C.min(dim=0).values
-        first = (C == best).to(torch.uint8).argmax(dim=0)
-        bp[y] = dxs[first]
-        M = e_tot[y] + best
+    for y in range(1, hr):
+        M, bp[y] = dp_row(M, e_tot[y], rig[y] if has_rig else None, order,
+                          dxs, rigc, has_rig)
     return M, bp
 
 
@@ -98,6 +125,8 @@ def backtrack(M_last: torch.Tensor, bp: torch.Tensor,
     return seam
 
 
-def find_seam(e_tot, rig, pref_left: bool, delta_x: int, has_rig: bool):
-    M_last, bp = dp_forward(e_tot, rig, pref_left, delta_x, has_rig)
+def find_seam(e_tot, rig, pref_left: bool, delta_x: int, has_rig: bool,
+              h=None, rigc_vec=None):
+    M_last, bp = dp_forward(e_tot, rig, pref_left, delta_x, has_rig, h=h,
+                            rigc_vec=rigc_vec)
     return backtrack(M_last, bp, pref_left)

@@ -67,34 +67,55 @@ def _gx(b: torch.Tensor, w: int) -> torch.Tensor:
     return (br - bl) * _f32(0.5)
 
 
-def _gy(b: torch.Tensor) -> torch.Tensor:
+def _gy(b: torch.Tensor, h=None) -> torch.Tensor:
     bd = torch.cat([b[1:], b[-1:]], dim=0)     # row below (replicated)
+    if h is not None:
+        # the bottom edge replicates at the true height h - 1 of an image
+        # padded to more rows (ragged batches); rows >= h are garbage
+        row = torch.arange(b.shape[0], device=b.device)[:, None]
+        bd = torch.where(row >= h - 1, b, bd)
     bu = torch.cat([b[:1], b[:-1]], dim=0)     # row above (replicated)
     return (bd - bu) * _f32(0.5)
 
 
-def gradients(b: torch.Tensor, w: int) -> tuple[torch.Tensor, torch.Tensor]:
+def gradients(b: torch.Tensor, w: int,
+              h=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Edge-replicated central differences on the first w lanes (SPEC.md
-    §2). b: [H, Wb] f32. Lanes >= w of the result are garbage."""
-    return _gx(b, w), _gy(b)
+    §2). b: [H, Wb] f32; h: the true height when b is padded to more rows
+    (None: all rows are real). Lanes >= w of the result are garbage."""
+    return _gx(b, w), _gy(b, h)
 
 
-def energy_from_plane(b: torch.Tensor, w: int, nrg: int) -> torch.Tensor:
-    """Energy map [H, Wb] f32 from a reader plane; lanes >= w get +inf."""
+def energy_from_plane(b: torch.Tensor, w: int, nrg: int,
+                      h=None) -> torch.Tensor:
+    """Energy map [H, Wb] f32 from a reader plane; lanes >= w get +inf.
+    h: the true height of a padded plane (see ``gradients``)."""
     H, Wb = b.shape
     lane = torch.arange(Wb, device=b.device)[None, :]
-    nrg = EnergyFunc(nrg)
-    if nrg == EnergyFunc.NULL:
+    if EnergyFunc(nrg) == EnergyFunc.NULL:
         e = torch.zeros((H, Wb), dtype=torch.float32, device=b.device)
-    elif nrg in (EnergyFunc.GRAD_XABS, EnergyFunc.LUMA_GRAD_XABS):
-        e = torch.abs(_gx(b, w))        # the default: gy is not needed
     else:
-        gx, gy = gradients(b, w)
-        if nrg in (EnergyFunc.GRAD_SUMABS, EnergyFunc.LUMA_GRAD_SUMABS):
-            e = (torch.abs(gx) + torch.abs(gy)) * _f32(0.5)
-        else:
-            # correctly rounded f32 sqrt: PyTorch's vectorized CPU sqrt is
-            # not (1 ulp off on AVX-512 hosts); an f64 sqrt rounded to f32
-            # is, on every device
-            e = torch.sqrt((gx * gx + gy * gy).double()).float()
+        e = energy_from_gx(_gx(b, w), b, nrg, h)
     return torch.where(lane < w, e, torch.inf)
+
+
+def energy_from_gx(gx: torch.Tensor, b: torch.Tensor, nrg: int,
+                   h=None) -> torch.Tensor:
+    """The energy of a gradient family (not NULL) from the x gradient gx
+    and the reader plane b, whose y gradient it takes only where the family
+    needs it; a column shard computes gx itself, with its neighbours'
+    halo columns (parallel/sharding.py)."""
+    nrg = EnergyFunc(nrg)
+    if nrg in (EnergyFunc.GRAD_XABS, EnergyFunc.LUMA_GRAD_XABS):
+        return torch.abs(gx)            # the default: gy is not needed
+    gy = _gy(b, h)
+    if nrg in (EnergyFunc.GRAD_SUMABS, EnergyFunc.LUMA_GRAD_SUMABS):
+        return (torch.abs(gx) + torch.abs(gy)) * _f32(0.5)
+    return sqrt_f32(gx * gx + gy * gy)
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 sqrt: PyTorch's vectorized CPU sqrt is not (1
+    ulp off on AVX-512 hosts); an f64 sqrt rounded to f32 is, on every
+    device."""
+    return torch.sqrt(x.double()).float()

@@ -61,19 +61,23 @@ def _posmap_from_vs(vs: torch.Tensor, ref_w: int) -> torch.Tensor:
 
 
 def _carve_once(cfg: EngineConfig, cur_b, cur_bias, cur_rig, posmap,
-                w: int, s: int, find_seam=dp_cuda.find_seam):
+                w: int, s: int, find_seam=dp_cuda.find_seam, h=None,
+                rigc_vec=None):
     """Find seam s (1-based) on the compacted planes at width w and compact
-    them. Returns (seam [H] i32, cur_b', cur_bias', cur_rig', posmap').
-    ``find_seam``: the kernels' wrapper, or ``dp_cuda.find_seam_plain``
-    for the resident kernel's plain version."""
+    them. Returns (seam [H] i32, cur_b', cur_bias', cur_rig', posmap');
+    posmap may be None (and then stays None). ``find_seam``: the kernels'
+    wrapper, or ``dp_cuda.find_seam_plain`` for the resident kernel's plain
+    version. h / rigc_vec: the true height and rigidity coefficients of a
+    map padded to more rows (ragged batches; see core.dp)."""
     lane = _lane(cfg.Wb, cur_b.device)
     pl = pref_is_left(s, cfg.side_switch_freq)
 
-    e = energy_from_plane(cur_b, w, cfg.nrg)
+    e = energy_from_plane(cur_b, w, cfg.nrg, h=h)
     if cfg.has_bias:
         e = torch.where(lane < w, e + cur_bias, torch.inf)
 
-    seam = find_seam(e, cur_rig, pl, cfg.delta_x, cfg.has_rig)
+    seam = find_seam(e, cur_rig, pl, cfg.delta_x, cfg.has_rig, h=h,
+                     rigc_vec=rigc_vec)
 
     ge = lane >= seam[:, None]
     keep = lane < (w - 1)
@@ -87,7 +91,8 @@ def _carve_once(cfg: EngineConfig, cur_b, cur_bias, cur_rig, posmap,
         cur_bias = compact(cur_bias)
     if cfg.has_rig:
         cur_rig = compact(cur_rig)
-    return seam, cur_b, cur_bias, cur_rig, compact(posmap)
+    return (seam, cur_b, cur_bias, cur_rig,
+            None if posmap is None else compact(posmap))
 
 
 def extend_map(cfg: EngineConfig, st: MapState, k: int) -> MapState:
@@ -131,9 +136,10 @@ def _extend_resident(cfg: EngineConfig, st: MapState, k: int) -> MapState:
                        cur_rig=cur_rig, depth=depth)
 
 
-def _extend_per_seam(cfg: EngineConfig, st: MapState, k: int) -> MapState:
+def _extend_per_seam(cfg: EngineConfig, st: MapState, k: int, h=None,
+                     rigc_vec=None) -> MapState:
     """extend_map one seam at a time, through the DP and backtrack
-    kernels."""
+    kernels. h / rigc_vec: as for _carve_once."""
     vs = st.vs.clone()
     posmap = _posmap_from_vs(vs, st.ref_w)
     cur_b, cur_bias, cur_rig = st.cur_b, st.cur_bias, st.cur_rig
@@ -141,13 +147,31 @@ def _extend_per_seam(cfg: EngineConfig, st: MapState, k: int) -> MapState:
     for _ in range(int(k)):
         s = depth + 1
         seam, cur_b, cur_bias, cur_rig, pm_next = _carve_once(
-            cfg, cur_b, cur_bias, cur_rig, posmap, st.ref_w - depth, s)
+            cfg, cur_b, cur_bias, cur_rig, posmap, st.ref_w - depth, s,
+            h=h, rigc_vec=rigc_vec)
         ref_col = posmap.gather(1, seam[:, None].long()).long()
         vs.scatter_(1, ref_col, s)
         posmap = pm_next
         depth = s
     return st._replace(vs=vs, cur_b=cur_b, cur_bias=cur_bias,
                        cur_rig=cur_rig, depth=depth)
+
+
+def _commit_hist(vs: torch.Tensor, ref_w: int, d0: int, kc: int,
+                 hist: torch.Tensor) -> None:
+    """Commit a chunk's seam history into vs in place, as
+    lqr_tpu.core.engine._commit_hist does: hist[j] ([H]) is seam d0+j+1 in
+    the coordinates of frame d0+j (the image with d0+j seams removed).
+    Composing the removals (position c of frame j+1 is c + (c >= hist[j])
+    of frame j) gives each seam's rank among the visible reference columns
+    of frame d0, which posmap lifts to its reference column."""
+    if kc == 0:
+        return
+    R = hist[:kc].clone()
+    for jr in range(kc - 2, -1, -1):
+        R[jr + 1:] += (R[jr + 1:] >= hist[jr]).to(torch.int32)
+    cols = _posmap_from_vs(vs, ref_w).gather(1, R.t().long())     # [H, kc]
+    _commit_ref_hist(vs, d0, kc, cols.t())
 
 
 def seam_step(cfg: EngineConfig, st: MapState) -> MapState:

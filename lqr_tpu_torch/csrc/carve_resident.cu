@@ -24,6 +24,18 @@
 // step). None of the TPU layout is carried over: no [f, 128] folds, no
 // wedges, no one-hot chase, no SMEM scalars.
 //
+// The batched entry (lqr_carve_resident_batched) carves one chunk for every
+// map of a [B, H, Wb] batch in one launch, one thread block per map, each
+// with its own w0, d0, kc, true height h and rigc row. It replaces the JAX
+// package's "scan the batch through the solo engine" tier
+// (lqr_tpu/parallel/batch.py:71-88): the batch is the grid, so up to 132
+// SMs work instead of one. Ragged rows follow lqr_tpu/core/dp.py:90-93 and
+// core/energy.py:90-93: the bottom edge replicates at row h - 1, the sweep
+// stops there (rows >= h would pass the frontier through), the chase starts
+// at row h - 1, and rows >= h carry seam[h - 1] through the record and the
+// compaction, as the JAX ragged DP leaves them. A map with kc = 0 carves
+// nothing and is only zeroed at x >= w0, as kc per-seam steps leave it.
+//
 // Design: one thread block, persistent across the chunk; up to 1024
 // threads stride over the columns, ITEMS columns each. The planes stay in
 // global memory: at the sizes ops/carve_resident.py:resident_ok admits
@@ -36,7 +48,9 @@
 // before a __syncwarp() and stores it after, so no store overwrites a
 // column that another lane has still to read.
 //
-// What bounds it on this card: one SM of 132 does all the work. Per seam,
+// What bounds it on this card: one SM of 132 does all the work (per map:
+// the batched entry puts B maps on up to 132 SMs, where their planes no
+// longer fit the L2 together and stream from device memory). Per seam,
 // the forward sweep is a serial chain of H rows, each a block-wide barrier
 // after every thread's serial chain for its columns (energy branches on a
 // run-time family, dp_best's loop over a run-time number of candidates):
@@ -78,7 +92,7 @@ struct Px {
 // return a value from before the compaction of the previous seam.
 __device__ __forceinline__ void load_px(Px& p, const float* b,
                                         const float* bias, const float* rig,
-                                        int fam, int y, int x, int H, int Wb,
+                                        int fam, int y, int x, int h, int Wb,
                                         int w) {
   const size_t at = (size_t)y * Wb + x;
   if (fam != kNull) {
@@ -86,7 +100,7 @@ __device__ __forceinline__ void load_px(Px& p, const float* b,
     p.r = b[x < w - 1 ? at + 1 : at];
     if (fam != kXabs) {
       p.u = b[(size_t)(y > 0 ? y - 1 : 0) * Wb + x];
-      p.d = b[(size_t)(y < H - 1 ? y + 1 : H - 1) * Wb + x];
+      p.d = b[(size_t)(y < h - 1 ? y + 1 : y) * Wb + x];
     }
   }
   if (bias) p.bias = bias[at];
@@ -125,12 +139,13 @@ __device__ __forceinline__ int warp_pick(int v, bool left) {
   return v;
 }
 
-template <int ITEMS>
+template <int ITEMS, bool kBatched>
 __global__ void __launch_bounds__(kMaxThreads)
 carve_resident_kernel(float* b, float* bias, float* rig, int* pm,
                       int8_t* bp, int* seam, int* hist,
-                      const float* rigc_in, int H, int Wb, int w0, int d0,
-                      int kc, int KC, int delta_x, int nrg, int ssf) {
+                      const float* rigc_in, const int* params, int H, int Wb,
+                      int w0, int d0, int kc, int KC, int delta_x, int nrg,
+                      int ssf) {
   extern __shared__ float frontier[];       // 2 * Wb
   __shared__ float rigc[kMaxDelta + 1];
   __shared__ float red_v[32];
@@ -143,6 +158,28 @@ carve_resident_kernel(float* b, float* bias, float* rig, int* pm,
   const int fam = nrg == 6 ? kNull : nrg % 3;
   const bool has_bias = bias != nullptr;
   const bool has_rig = rig != nullptr;
+
+  // this block's map: in the batched entry, its params row [w0, d0, kc,
+  // h] and its slices of the batch; in the solo entry, the arguments and
+  // h = H (a separate instantiation, so the solo kernel carries none of
+  // this: with it the solo kernel ran 10 % slower on the H100)
+  int h = H;
+  if (kBatched) {
+    const int img = blockIdx.x;
+    w0 = params[4 * img];
+    d0 = params[4 * img + 1];
+    kc = params[4 * img + 2];
+    h = params[4 * img + 3];
+    const size_t plane = (size_t)img * H * Wb;
+    b += plane;
+    pm += plane;
+    bp += plane;
+    if (has_bias) bias += plane;
+    if (has_rig) rig += plane;
+    seam += (size_t)img * H;
+    hist += (size_t)img * KC * H;
+    rigc_in += (size_t)img * (delta_x + 1);
+  }
 
   if (t <= delta_x) rigc[t] = rigc_in[t];
   for (int i = t; i < (KC - kc) * H; i += nt) hist[(size_t)kc * H + i] = -1;
@@ -160,17 +197,17 @@ carve_resident_kernel(float* b, float* bias, float* rig, int* pm,
 #pragma unroll
     for (int i = 0; i < ITEMS; ++i) {
       const int x = t + i * nt;
-      if (x < w) load_px(nxt[i], b, bias, rig, fam, 0, x, H, Wb, w);
+      if (x < w) load_px(nxt[i], b, bias, rig, fam, 0, x, h, Wb, w);
     }
-    for (int y = 0; y < H; ++y) {
+    for (int y = 0; y < h; ++y) {
       Px px[ITEMS];
 #pragma unroll
       for (int i = 0; i < ITEMS; ++i) px[i] = nxt[i];
-      if (y + 1 < H) {
+      if (y + 1 < h) {
 #pragma unroll
         for (int i = 0; i < ITEMS; ++i) {
           const int x = t + i * nt;
-          if (x < w) load_px(nxt[i], b, bias, rig, fam, y + 1, x, H, Wb, w);
+          if (x < w) load_px(nxt[i], b, bias, rig, fam, y + 1, x, h, Wb, w);
         }
       }
       int8_t* bp_row = bp + (size_t)y * Wb;
@@ -226,12 +263,14 @@ carve_resident_kernel(float* b, float* bias, float* rig, int* pm,
     if (lane == 0) red_i[warp] = idx;
     __syncthreads();
 
-    // ---- the chase, on one thread
+    // ---- the chase, on one thread, from row h - 1; rows >= h carry its
+    // start, as pass-through rows (bp = 0) would
     if (t == 0) {
       int x = red_i[0];
       for (int k = 1; k < nwarps; ++k)
         x = left ? min(x, red_i[k]) : max(x, red_i[k]);
-      for (int y = H - 1; y > 0; --y) {
+      for (int y = H - 1; y >= h; --y) seam[y] = x;
+      for (int y = h - 1; y > 0; --y) {
         seam[y] = x;
         x += bp[(size_t)y * Wb + x];
       }
@@ -287,24 +326,48 @@ carve_resident_kernel(float* b, float* bias, float* rig, int* pm,
   }
 }
 
-template <int ITEMS>
-int launch(int threads, size_t smem, cudaStream_t stream, float* b,
-           float* bias, float* rig, int* pm, int8_t* bp, int* seam,
-           int* hist, const float* rigc, int H, int Wb, int w0, int d0,
-           int kc, int KC, int delta_x, int nrg, int ssf) {
+template <int ITEMS, bool kBatched>
+int launch(int blocks, int threads, size_t smem, cudaStream_t stream,
+           float* b, float* bias, float* rig, int* pm, int8_t* bp, int* seam,
+           int* hist, const float* rigc, const int* params, int H, int Wb,
+           int w0, int d0, int kc, int KC, int delta_x, int nrg, int ssf) {
   if (smem > (size_t)kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
-        carve_resident_kernel<ITEMS>,
+        carve_resident_kernel<ITEMS, kBatched>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) {
       cudaGetLastError();
       return (int)err;
     }
   }
-  carve_resident_kernel<ITEMS><<<1, threads, smem, stream>>>(
-      b, bias, rig, pm, bp, seam, hist, rigc, H, Wb, w0, d0, kc, KC,
+  carve_resident_kernel<ITEMS, kBatched><<<blocks, threads, smem, stream>>>(
+      b, bias, rig, pm, bp, seam, hist, rigc, params, H, Wb, w0, d0, kc, KC,
       delta_x, nrg, ssf);
   return (int)cudaGetLastError();
+}
+
+template <bool kBatched>
+int dispatch(int blocks, cudaStream_t st, float* b, float* bias, float* rig,
+             int* pm, int8_t* bp, int* seam, int* hist, const float* rigc,
+             const int* params, int H, int Wb, int w0, int d0, int kc, int KC,
+             int delta_x, int nrg, int ssf) {
+  const int threads = Wb < kMaxThreads ? ((Wb + 31) / 32) * 32 : kMaxThreads;
+  const int items = (Wb + threads - 1) / threads;
+  const size_t smem = (size_t)2 * Wb * sizeof(float);
+#define LQR_LAUNCH(N)                                                      \
+  launch<N, kBatched>(blocks, threads, smem, st, b, bias, rig, pm, bp,    \
+                      seam, hist, rigc, params, H, Wb, w0, d0, kc, KC,   \
+                      delta_x, nrg, ssf)
+  if (items == 1) return LQR_LAUNCH(1);
+  if (items == 2) return LQR_LAUNCH(2);
+  if (items <= 4) return LQR_LAUNCH(4);
+  return LQR_LAUNCH(8);
+#undef LQR_LAUNCH
+}
+
+bool bad_shape(int H, int Wb, int KC, int delta_x, int nrg) {
+  return H < 1 || Wb < 1 || Wb > kMaxThreads * kMaxItems || KC < 1 ||
+         delta_x < 0 || delta_x > kMaxDelta || nrg < 0 || nrg > 6;
 }
 
 }  // namespace
@@ -320,22 +383,28 @@ int lqr_carve_resident(float* b, float* bias, float* rig, int* pm,
                        int8_t* bp, int* seam, int* hist, const float* rigc,
                        int H, int Wb, int w0, int d0, int kc, int KC,
                        int delta_x, int nrg, int ssf, void* stream) {
-  if (H < 1 || Wb < 1 || Wb > kMaxThreads * kMaxItems || delta_x < 0 ||
-      delta_x > kMaxDelta || nrg < 0 || nrg > 6 || kc < 0 || kc > KC ||
-      kc > w0 || w0 > Wb || d0 < 0)
+  if (bad_shape(H, Wb, KC, delta_x, nrg) || kc < 0 || kc > KC || kc > w0 ||
+      w0 > Wb || d0 < 0)
     return (int)cudaErrorInvalidValue;
-  const int threads = Wb < kMaxThreads ? ((Wb + 31) / 32) * 32 : kMaxThreads;
-  const int items = (Wb + threads - 1) / threads;
-  const size_t smem = (size_t)2 * Wb * sizeof(float);
-  cudaStream_t st = (cudaStream_t)stream;
-#define LQR_LAUNCH(N)                                                       \
-  launch<N>(threads, smem, st, b, bias, rig, pm, bp, seam, hist, rigc, H, \
-            Wb, w0, d0, kc, KC, delta_x, nrg, ssf)
-  if (items == 1) return LQR_LAUNCH(1);
-  if (items == 2) return LQR_LAUNCH(2);
-  if (items <= 4) return LQR_LAUNCH(4);
-  return LQR_LAUNCH(8);
-#undef LQR_LAUNCH
+  return dispatch<false>(1, (cudaStream_t)stream, b, bias, rig, pm, bp, seam,
+                         hist, rigc, nullptr, H, Wb, w0, d0, kc, KC, delta_x,
+                         nrg, ssf);
+}
+
+// The batched entry: every plane (and bp) is [B, H, Wb], seam [B, H], hist
+// [B, KC, H], rigc [B, delta_x + 1] f32, params [B, 4] i32 on the device,
+// one row [w0, d0, kc, h] per map (0 <= kc <= min(KC, w0), w0 <= Wb,
+// d0 >= 0, 1 <= h <= H; the caller checks them). One thread block per map.
+int lqr_carve_resident_batched(float* b, float* bias, float* rig, int* pm,
+                               int8_t* bp, int* seam, int* hist,
+                               const float* rigc, const int* params, int B,
+                               int H, int Wb, int KC, int delta_x, int nrg,
+                               int ssf, void* stream) {
+  if (bad_shape(H, Wb, KC, delta_x, nrg) || B < 1 || params == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return dispatch<true>(B, (cudaStream_t)stream, b, bias, rig, pm, bp, seam,
+                        hist, rigc, params, H, Wb, 0, 0, 0, KC, delta_x, nrg,
+                        ssf);
 }
 
 }  // extern "C"

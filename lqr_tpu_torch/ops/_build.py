@@ -22,7 +22,7 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 SO = BUILD / "liblqr_kernels.so"
 SOURCES = (CSRC / "dp_forward.cu", CSRC / "backtrack.cu",
-           CSRC / "carve_resident.cu")
+           CSRC / "carve_resident.cu", CSRC / "dp_block.cu")
 HEADERS = (CSRC / "seam_dp.cuh",)
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -94,11 +94,17 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.lqr_dp_forward.restype = i
-    lib.lqr_dp_forward.argtypes = [p, p, p, i, i, i, i, p, p, p]
+    lib.lqr_dp_forward.argtypes = [p, p, p, i, i, i, i, i, p, p, p, p]
+    lib.lqr_smem_optin.restype = i
+    lib.lqr_smem_optin.argtypes = []
     lib.lqr_backtrack.restype = i
     lib.lqr_backtrack.argtypes = [p, p, i, i, i, p, p]
     lib.lqr_carve_resident.restype = i
     lib.lqr_carve_resident.argtypes = [p] * 8 + [i] * 9 + [p]
+    lib.lqr_carve_resident_batched.restype = i
+    lib.lqr_carve_resident_batched.argtypes = [p] * 9 + [i] * 7 + [p]
+    lib.lqr_dp_block.restype = i
+    lib.lqr_dp_block.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p]
     lib.lqr_cuda_error_string.restype = ctypes.c_char_p
     lib.lqr_cuda_error_string.argtypes = [i]
     _lib = lib

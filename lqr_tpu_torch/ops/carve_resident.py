@@ -18,6 +18,19 @@ backpointer writes and to whatever else runs. 512x384 (1.8 MB) and
 1024x768 with bias and rigidity (13.4 MB) are admitted; 2048x2048 (37.7 MB)
 takes the per-seam route. The TPU's criteria (H % CH, the 14 MB VMEM limit)
 are not carried over.
+
+``carve_chunk_resident_batched`` carves one chunk for every map of a
+``[B, H, Wb]`` batch in one launch, one thread block per map, each with its
+own ``w0``, ``d0``, ``kc``, true height ``h`` and row of a ``rigc [B,
+delta_x + 1]`` table (rows >= h of a padded map pass through, as in
+``lqr_tpu.core.dp``). Its plain version is the loop over the maps of
+``carve_chunk_resident_plain``. Its gate, ``batched_resident_ok``, is not
+the L2 budget: that is a criterion for one map on one SM, whose planes the
+L2 can hold through a chunk. A batch's maps run on up to 132 SMs at once
+and their planes stream from device memory whatever their size, as they do
+on the per-seam route, which would carve the maps one at a time on one SM.
+So a batch of two or more maps takes the batched kernel whenever its
+columns fit the kernel (Wb <= MAX_WB); a batch of one keeps the solo gate.
 """
 
 from __future__ import annotations
@@ -28,7 +41,9 @@ from ..core.state import EngineConfig
 from . import _build, dp_cuda
 
 __all__ = ["RESIDENT_BUDGET", "MAX_WB", "resident_bytes", "resident_ok",
-           "carve_chunk_resident", "carve_chunk_resident_plain"]
+           "batched_resident_ok", "carve_chunk_resident",
+           "carve_chunk_resident_plain", "carve_chunk_resident_batched",
+           "carve_chunk_resident_batched_plain"]
 
 RESIDENT_BUDGET = 20 << 20      # bytes of planes; the H100's L2 is 50 MiB
 MAX_WB = 8192                   # 1024 threads x 8 columns (the kernel's)
@@ -44,6 +59,15 @@ def resident_ok(H: int, Wb: int, has_bias: bool, has_rig: bool) -> bool:
     """Whether extend_map takes the resident route for this map."""
     return (Wb <= MAX_WB
             and resident_bytes(H, Wb, has_bias, has_rig) <= RESIDENT_BUDGET)
+
+
+def batched_resident_ok(B: int, H: int, Wb: int, has_bias: bool,
+                        has_rig: bool) -> bool:
+    """Whether a batch of B maps takes the batched resident kernel (see the
+    module doc)."""
+    if B == 1:
+        return resident_ok(H, Wb, has_bias, has_rig)
+    return Wb <= MAX_WB
 
 
 def _check_args(cur_b, cur_bias, cur_rig, posmap, w0, d0, kc, delta_x,
@@ -115,10 +139,12 @@ def carve_chunk_resident(cur_b, cur_bias, cur_rig, posmap, w0: int, d0: int,
 def carve_chunk_resident_plain(cur_b, cur_bias, cur_rig, posmap, w0: int,
                                d0: int, kc: int, delta_x: int,
                                has_bias: bool, has_rig: bool, nrg: int,
-                               ssf: int, KC: int):
+                               ssf: int, KC: int, h=None, rigc_vec=None):
     """The plain version, on any device: kc per-seam steps of the engine
     with the plain DP and backtrack, each seam recorded through posmap;
-    then zeros at x >= w0 - kc, as the kernel leaves them."""
+    then zeros at x >= w0 - kc, as the kernel leaves them. h / rigc_vec:
+    the map's true height and rigidity coefficients when it is padded to
+    more rows (see core.dp)."""
     from ..core.engine import _carve_once   # core.engine imports this module
     H, Wb = cur_b.shape
     cfg = EngineConfig(H=H, Wb=Wb, C=1, delta_x=delta_x, nrg=nrg,
@@ -129,7 +155,7 @@ def carve_chunk_resident_plain(cur_b, cur_bias, cur_rig, posmap, w0: int,
     for j in range(kc):
         seam, b, bias, rig, pm_next = _carve_once(
             cfg, b, bias, rig, pm, w0 - j, d0 + j + 1,
-            find_seam=dp_cuda.find_seam_plain)
+            find_seam=dp_cuda.find_seam_plain, h=h, rigc_vec=rigc_vec)
         hist[j] = pm.gather(1, seam[:, None].long())[:, 0]
         pm = pm_next
     keep = torch.arange(Wb, device=cur_b.device)[None, :] < w0 - kc
@@ -139,3 +165,101 @@ def carve_chunk_resident_plain(cur_b, cur_bias, cur_rig, posmap, w0: int,
     if has_rig:
         rig = torch.where(keep, rig, 0)
     return hist, b, bias, rig, pm
+
+
+def _batched_params(B, H, Wb, w0, d0, kc, h, KC) -> torch.Tensor:
+    """The [B, 4] i32 host table [w0, d0, kc, h] of a batched chunk, each
+    entry checked."""
+    params = torch.zeros((B, 4), dtype=torch.int32)
+    for i, col in enumerate((w0, d0, kc, h)):
+        v = torch.as_tensor(col, dtype=torch.int64).reshape(-1)
+        if v.numel() == 1:
+            v = v.expand(B)
+        if v.numel() != B:
+            raise ValueError(f"per-map argument {('w0', 'd0', 'kc', 'h')[i]}"
+                             f" has {v.numel()} entries for {B} maps")
+        params[:, i] = v
+    w0_, d0_, kc_, h_ = params.unbind(1)
+    bad = ((kc_ < 0) | (kc_ > KC) | (kc_ > w0_) | (w0_ > Wb) | (d0_ < 0)
+           | (h_ < 1) | (h_ > H))
+    if bool(bad.any()):
+        i = int(bad.nonzero()[0, 0])
+        raise ValueError(f"map {i}: w0={int(w0_[i])} d0={int(d0_[i])} "
+                         f"kc={int(kc_[i])} h={int(h_[i])} outside "
+                         f"0 <= kc <= min({KC}, w0), w0 <= {Wb}, d0 >= 0, "
+                         f"1 <= h <= {H}")
+    return params
+
+
+def carve_chunk_resident_batched(cur_b, cur_bias, cur_rig, posmap, w0, d0,
+                                 kc, h, rigc, delta_x: int, has_bias: bool,
+                                 has_rig: bool, nrg: int, ssf: int, KC: int):
+    """Carve kc[i] <= KC seams off every map i of a [B, H, Wb] batch, at
+    width w0[i], depth d0[i] and true height h[i] (each a host int or a
+    sequence of B), with the rigidity coefficients rigc [B, delta_x + 1]
+    f32 on the planes' device. Returns (hist [B, KC, H] i32, cur_b',
+    cur_bias', cur_rig', posmap') as carve_chunk_resident does per map."""
+    if cur_b.ndim != 3:
+        raise ValueError(f"cur_b: expected [B, H, Wb], got "
+                         f"{tuple(cur_b.shape)}")
+    B, H, Wb = cur_b.shape
+    _check_args(cur_b[0], None if cur_bias is None else cur_bias[0],
+                None if cur_rig is None else cur_rig[0], posmap[0], Wb, 0, 0,
+                delta_x, has_bias, has_rig, nrg, KC)
+    shape, dev = (B, H, Wb), cur_b.device
+    for name, t in (("cur_b", cur_b), ("posmap", posmap),
+                    ("cur_bias", cur_bias if has_bias else None),
+                    ("cur_rig", cur_rig if has_rig else None)):
+        if t is not None:
+            dp_cuda._check(t, name, t.dtype, shape, dev)
+    dp_cuda._check(rigc, "rigc", torch.float32, (B, delta_x + 1), dev)
+    params = _batched_params(B, H, Wb, w0, d0, kc, h, KC)
+    if dev.type == "cpu":
+        return carve_chunk_resident_batched_plain(
+            cur_b, cur_bias, cur_rig, posmap, params, rigc, delta_x,
+            has_bias, has_rig, nrg, ssf, KC)
+    if dev.type != "cuda":
+        raise ValueError(f"cur_b: unsupported device {dev}")
+    if Wb > MAX_WB:
+        raise ValueError(f"Wb={Wb} exceeds the kernel's {MAX_WB}")
+
+    lib = _build.load()
+    b, pm = cur_b.clone(), posmap.clone()
+    bias = cur_bias.clone() if has_bias else cur_bias
+    rig = cur_rig.clone() if has_rig else cur_rig
+    hist = torch.empty((B, KC, H), dtype=torch.int32, device=dev)
+    bp = torch.empty((B, H, Wb), dtype=torch.int8, device=dev)
+    seam = torch.empty((B, H), dtype=torch.int32, device=dev)
+    params_d = params.to(dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.lqr_carve_resident_batched(
+            b.data_ptr(), bias.data_ptr() if has_bias else None,
+            rig.data_ptr() if has_rig else None, pm.data_ptr(),
+            bp.data_ptr(), seam.data_ptr(), hist.data_ptr(),
+            rigc.data_ptr(), params_d.data_ptr(), B, H, Wb, int(KC),
+            delta_x, nrg, int(ssf), stream)
+    _build.check(lib, rc, "lqr_carve_resident_batched")
+    dp_cuda.LAUNCHES["carve_resident_batched"] += 1
+    return hist, b, bias, rig, pm
+
+
+def carve_chunk_resident_batched_plain(cur_b, cur_bias, cur_rig, posmap,
+                                       params, rigc, delta_x: int,
+                                       has_bias: bool, has_rig: bool,
+                                       nrg: int, ssf: int, KC: int):
+    """The plain version of the batched entry, on any device: the loop over
+    the maps of carve_chunk_resident_plain. params: [B, 4] i32 rows
+    [w0, d0, kc, h] (host)."""
+    outs = []
+    H = cur_b.shape[1]
+    for i, (w0, d0, kc, h) in enumerate(params.tolist()):
+        outs.append(carve_chunk_resident_plain(
+            cur_b[i], cur_bias[i] if has_bias else None,
+            cur_rig[i] if has_rig else None, posmap[i], w0, d0, kc, delta_x,
+            has_bias, has_rig, nrg, ssf, KC, h=None if h == H else h,
+            rigc_vec=rigc[i]))
+    hist, b, bias, rig, pm = zip(*outs)
+    return (torch.stack(hist), torch.stack(b),
+            torch.stack(bias) if has_bias else cur_bias,
+            torch.stack(rig) if has_rig else cur_rig, torch.stack(pm))

@@ -8,8 +8,11 @@ on the current stream without synchronizing, or raises. There is no
 fallback from a failed launch to the plain version.
 
 ``LAUNCHES`` counts successful kernel launches per kernel, so a run can show
-that its main path went through the kernels; it also counts the resident
-kernel of ``ops/carve_resident.py``.
+that its main path went through the kernels; it also counts the kernels of
+``ops/carve_resident.py`` and ``ops/dp_block.py``.
+
+A map too wide for two frontier rows in the card's shared memory runs the
+same DP kernel with its frontier in a global scratch (``frontier_scratch``).
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ from ..core.dp import (dp_forward as dp_forward_plain,
                        find_seam as find_seam_plain, rigc_table)
 from . import _build
 
-LAUNCHES = {"dp_forward": 0, "backtrack": 0, "carve_resident": 0}
+LAUNCHES = {"dp_forward": 0, "backtrack": 0, "carve_resident": 0,
+            "carve_resident_batched": 0, "dp_block": 0}
 
 __all__ = ["LAUNCHES", "dp_forward", "backtrack", "find_seam",
            "dp_forward_plain", "backtrack_plain", "find_seam_plain"]
@@ -47,9 +51,31 @@ def _rigc_device(delta_x: int, H: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(rigc_table(delta_x, H)).to(device)
 
 
+@functools.lru_cache(maxsize=16)
+def smem_optin(device: torch.device) -> int:
+    """The opt-in shared memory per block of a CUDA device, in bytes."""
+    lib = _build.load()
+    with torch.cuda.device(device):
+        n = lib.lqr_smem_optin()
+    if n < 0:
+        _build.check(lib, -n, "lqr_smem_optin")
+    return n
+
+
+def frontier_scratch(W: int, device: torch.device):
+    """None when two frontier rows of W f32 fit the device's shared memory;
+    else a [2 * W] f32 scratch for the kernel to hold them in."""
+    if 2 * W * 4 <= smem_optin(device):
+        return None
+    return torch.empty(2 * W, dtype=torch.float32, device=device)
+
+
 def dp_forward(e_tot: torch.Tensor, rig: torch.Tensor | None,
-               pref_left: bool, delta_x: int, has_rig: bool):
-    """Forward DP -> (M_last [Wb] f32, bp [H, Wb] int8); see core.dp."""
+               pref_left: bool, delta_x: int, has_rig: bool, h=None,
+               rigc_vec=None):
+    """Forward DP -> (M_last [Wb] f32, bp [H, Wb] int8); see core.dp. h:
+    the true height (rows >= h pass through); rigc_vec: [delta_x + 1] f32
+    on e_tot's device, the image's rigidity coefficients."""
     if e_tot.ndim != 2:
         raise ValueError(f"e_tot: expected [H, Wb], got {tuple(e_tot.shape)}")
     H, Wb = e_tot.shape
@@ -60,22 +86,33 @@ def dp_forward(e_tot: torch.Tensor, rig: torch.Tensor | None,
         _check(rig, "rig", torch.float32, (H, Wb), e_tot.device)
     if not 0 <= delta_x <= 10:
         raise ValueError(f"delta_x={delta_x} out of range 0..10")
+    if h is not None and not 1 <= h <= H:
+        raise ValueError(f"h={h} out of range 1..{H}")
+    if rigc_vec is not None:
+        _check(rigc_vec, "rigc_vec", torch.float32, (delta_x + 1,),
+               e_tot.device)
     if e_tot.device.type == "cpu":
-        return dp_forward_plain(e_tot, rig, pref_left, delta_x, has_rig)
+        return dp_forward_plain(e_tot, rig, pref_left, delta_x, has_rig,
+                                h=h, rigc_vec=rigc_vec)
     if e_tot.device.type != "cuda":
         raise ValueError(f"e_tot: unsupported device {e_tot.device}")
 
     lib = _build.load()
-    M_last = torch.empty(Wb, dtype=torch.float32, device=e_tot.device)
-    bp = torch.empty((H, Wb), dtype=torch.int8, device=e_tot.device)
-    rigc = _rigc_device(delta_x, H, e_tot.device)
-    with torch.cuda.device(e_tot.device):
+    dev = e_tot.device
+    M_last = torch.empty(Wb, dtype=torch.float32, device=dev)
+    bp = torch.empty((H, Wb), dtype=torch.int8, device=dev)
+    rigc = (_rigc_device(delta_x, H, dev) if rigc_vec is None
+            else rigc_vec)
+    scratch = frontier_scratch(Wb, dev)
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lqr_dp_forward(e_tot.data_ptr(),
                                 rig.data_ptr() if has_rig else None,
                                 rigc.data_ptr(), int(bool(pref_left)),
-                                delta_x, H, Wb, M_last.data_ptr(),
-                                bp.data_ptr(), stream)
+                                delta_x, H, Wb, H if h is None else int(h),
+                                M_last.data_ptr(), bp.data_ptr(),
+                                None if scratch is None
+                                else scratch.data_ptr(), stream)
     _build.check(lib, rc, "lqr_dp_forward")
     LAUNCHES["dp_forward"] += 1
     return M_last, bp
@@ -106,7 +143,9 @@ def backtrack(M_last: torch.Tensor, bp: torch.Tensor,
     return seam
 
 
-def find_seam(e_tot, rig, pref_left: bool, delta_x: int, has_rig: bool):
+def find_seam(e_tot, rig, pref_left: bool, delta_x: int, has_rig: bool,
+              h=None, rigc_vec=None):
     """Seam [H] int32 of the energy map: dp_forward then backtrack."""
-    M_last, bp = dp_forward(e_tot, rig, pref_left, delta_x, has_rig)
+    M_last, bp = dp_forward(e_tot, rig, pref_left, delta_x, has_rig, h=h,
+                            rigc_vec=rigc_vec)
     return backtrack(M_last, bp, pref_left)

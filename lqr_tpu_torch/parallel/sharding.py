@@ -1,0 +1,454 @@
+"""Sharded carving: batch data-parallelism and column sharding of the DP.
+
+Counterpart of ``lqr_tpu.parallel.sharding``, as one process and one
+controller, the way ``shard_map`` runs it:
+
+- ``Mesh`` is a (data, cols) grid of ``torch.device`` s. A device may
+  appear more than once: four column shards on one GPU run the column-
+  sharded path on a one-GPU machine, eight CPU shards run it in the tests.
+- A sharded state (``ShardedState``) keeps each shard as its own tensors on
+  its device. Every exchange is an explicit copy to the neighbour's device;
+  the gathers (the frontier and backpointers for the backtrack, the row
+  counts for the commit) are a ``torch.cat`` onto one device.
+
+Axis ``data`` splits the batch: each shard carves its images with the
+batched routes of ``parallel.batch``, with no exchange at all.
+
+Axis ``cols`` splits image columns. The DP's rows are sequential and its
+columns parallel, so shards exchange halos once per block of R rows: to
+compute R rows exactly in its own Wl columns a shard needs G = R·delta_x
+frontier values and an [R, G] energy (and rigidity) slab of each neighbour,
+sent as one packed copy per neighbour per block, and recomputes the
+shrinking cone of the halo itself (``dp_block``). Values outside the exact
+cone are upper bounds that never reach the shard's own columns, so the
+seams equal the unsharded DP's bit for bit. At the mesh's edges the halo
+is +inf frontier and energy with zero rigidity (a +inf rigidity would
+poison e + rig·rigc in the cone).
+
+On CUDA tensors each shard's block of rows runs on the ``dp_block`` kernel
+(``csrc/dp_block.cu``) and the backtrack of the gathered map on the
+backtrack kernel; on CPU tensors their plain versions run.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import EnergyFunc
+from ..core import engine as eng
+from ..core.energy import (_f32, energy_from_gx, energy_from_plane,
+                           reader_plane)
+from ..core.state import EngineConfig, MapState
+from ..errors import LqrConfigError, LqrImageError
+from ..i18n import _
+from ..ops import dp_cuda
+from ..ops.dp_block import dp_block
+
+__all__ = ["Mesh", "ShardedState", "make_mesh", "shard_batch_state",
+           "gather_state", "map_data_shards", "find_seam_sharded",
+           "extend_map_sharded", "sharded_seam_step"]
+
+INF = float("inf")
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A (data, cols) grid of devices: ``devices[d][c]``."""
+
+    devices: tuple
+
+    @property
+    def shape(self) -> dict:
+        return {"data": len(self.devices), "cols": len(self.devices[0])}
+
+
+def make_mesh(n_devices: int | None = None, data: int | None = None,
+              devices=None) -> Mesh:
+    """A (data, cols) mesh of n_devices devices: ``devices`` (a list that
+    may repeat a device), else every CUDA device, else n_devices CPU
+    shards. data: the size of the 'data' axis (default: 1 for up to four
+    devices, else 2)."""
+    if devices is None:
+        if torch.cuda.is_available():
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+        else:
+            devices = [torch.device("cpu")] * (n_devices or 1)
+    devs = [torch.device(d) for d in devices]
+    n = n_devices or len(devs)
+    if not 1 <= n <= len(devs):
+        raise LqrConfigError(
+            _("a mesh of {n} devices needs that many; {m} given")
+            .format(n=n, m=len(devs)))
+    if data is None:
+        data = 1 if n <= 4 else 2
+    if n % data != 0:
+        raise LqrConfigError(
+            _("{n} devices cannot form {d} 'data' rows").format(n=n, d=data))
+    cols = n // data
+    return Mesh(tuple(tuple(devs[r * cols:(r + 1) * cols])
+                      for r in range(data)))
+
+
+class ShardedState(NamedTuple):
+    """A batched MapState split over a mesh: ``shards[d][c]`` is the MapState
+    of data row d's images and (with ``cols``) column shard c's columns, on
+    ``mesh.devices[d][c]``; without ``cols`` each row has one shard, on
+    ``mesh.devices[d][0]``. ref_w and depth are the row's, in every shard."""
+
+    mesh: Mesh
+    cols: bool
+    shards: tuple
+
+
+_STATE_PLANES = ("ref", "bias", "rig", "vs", "cur_b", "cur_bias", "cur_rig")
+
+
+def shard_batch_state(st: MapState, mesh: Mesh,
+                      cols: bool = False) -> ShardedState:
+    """Split a batched MapState over the mesh: the batch over 'data', and
+    with cols=True the image columns over 'cols'."""
+    B, _H, Wb = st.vs.shape
+    n_data = mesh.shape["data"]
+    if B % n_data != 0:
+        raise LqrImageError(
+            _("batch of {B} images cannot shard evenly over {n} 'data' "
+              "devices; pad the batch to a multiple of {n}")
+            .format(B=B, n=n_data))
+    n_cols = mesh.shape["cols"] if cols else 1
+    if Wb % n_cols != 0:
+        raise LqrImageError(
+            _("width {w} cannot shard evenly over {n} 'cols' devices")
+            .format(w=Wb, n=n_cols))
+    Bd, Wl = B // n_data, Wb // n_cols
+
+    def put(a, d, c):
+        if a is None:
+            return None
+        a = a[d * Bd:(d + 1) * Bd]
+        if cols:
+            a = a[:, :, c * Wl:(c + 1) * Wl]
+        return a.to(mesh.devices[d][c]).contiguous()
+
+    rows = []
+    for d in range(n_data):
+        sl = slice(d * Bd, (d + 1) * Bd)
+        rows.append(tuple(
+            MapState(**{name: put(getattr(st, name), d, c)
+                        for name in _STATE_PLANES},
+                     aux=tuple(put(a, d, c) for a in st.aux),
+                     ref_w=st.ref_w[sl].copy(), depth=st.depth[sl].copy())
+            for c in range(n_cols)))
+    return ShardedState(mesh, cols, tuple(rows))
+
+
+def gather_state(sst: ShardedState) -> MapState:
+    """The whole batched MapState on the mesh's first device."""
+    dev = sst.mesh.devices[0][0]
+
+    def cat(parts):
+        if parts[0][0] is None:
+            return None
+        rows = [torch.cat([p.to(dev) for p in row], dim=2) for row in parts]
+        return torch.cat(rows, dim=0)
+
+    def field(name):
+        return cat([[getattr(s, name) for s in row] for row in sst.shards])
+
+    n_aux = len(sst.shards[0][0].aux)
+    return MapState(
+        **{name: field(name) for name in _STATE_PLANES},
+        aux=tuple(cat([[s.aux[j] for s in row] for row in sst.shards])
+                  for j in range(n_aux)),
+        ref_w=np.concatenate([row[0].ref_w for row in sst.shards]),
+        depth=np.concatenate([row[0].depth for row in sst.shards]))
+
+
+def map_data_shards(sst: ShardedState, fn) -> ShardedState:
+    """Apply fn(state, batch_slice) -> state to each data row's (unsplit)
+    shard: the data-parallel resize, with no exchange."""
+    assert not sst.cols
+    out, start = [], 0
+    for (st,) in sst.shards:
+        n = st.vs.shape[0]
+        out.append((fn(st, slice(start, start + n)),))
+        start += n
+    return sst._replace(shards=tuple(out))
+
+
+# ---------------------------------------------------------------------------
+# column-sharded DP with one halo exchange per block of rows
+# ---------------------------------------------------------------------------
+
+def _block_rows(H: int, delta_x: int, Wl: int) -> int:
+    """Rows per halo exchange: the largest R dividing H whose halo
+    G = R·delta_x is at most half the local width (the exact-cone bound)."""
+    for r in (32, 16, 8, 4, 2, 1):
+        if H % r == 0 and r * max(delta_x, 1) * 2 <= Wl:
+            return r
+    return 1
+
+
+def _dp_local_blocked(e_loc, rig_loc, pref_left: bool, delta_x: int,
+                      has_rig: bool, H: int, R: int, devices):
+    """The column-sharded forward DP. e_loc / rig_loc: per-shard [H, Wl]
+    tensors (rig_loc None without rigidity), shard c on devices[c].
+    Returns (per-shard M_last [Wl], per-shard bp [H, Wl] int8)."""
+    n = len(e_loc)
+    Wl = e_loc[0].shape[-1]
+    G = max(R * delta_x, 1)      # halo width (>= 1 keeps shapes non-empty)
+    exchange = n > 1 and delta_x > 0
+    inf_f = [torch.full((G,), INF, device=dv) for dv in devices]
+    inf_e = [torch.full((R, G), INF, device=dv) for dv in devices]
+    zero_r = [torch.zeros((R, G), device=dv) for dv in devices]
+    M = [torch.full((Wl,), INF, device=dv) for dv in devices]
+    bps = [[] for _ in range(n)]
+
+    for blk in range(H // R):
+        rows = slice(blk * R, (blk + 1) * R)
+        e_blk = [e[rows] for e in e_loc]
+        r_blk = [r[rows] for r in rig_loc] if has_rig else None
+
+        def pack(c, sl):
+            """The [1 + R (+ R), G] plane one shard sends one neighbour:
+            frontier, energy slab and rigidity slab in one copy."""
+            parts = [M[c][None, sl], e_blk[c][:, sl]]
+            if has_rig:
+                parts.append(r_blk[c][:, sl])
+            return torch.cat(parts, dim=0)
+
+        if exchange:   # every shard sends before any frontier moves on
+            to_right = [pack(c, slice(Wl - G, Wl)) for c in range(n - 1)]
+            to_left = [None] + [pack(c, slice(0, G)) for c in range(1, n)]
+
+        def unpack(halo, c):
+            if halo is None:
+                return inf_f[c], inf_e[c], zero_r[c]
+            halo = halo.to(devices[c])
+            return (halo[0], halo[1:1 + R],
+                    halo[1 + R:] if has_rig else zero_r[c])
+
+        for c in range(n):
+            fl, el, rl = unpack(to_right[c - 1] if exchange and c > 0
+                                else None, c)
+            fr, er, rr = unpack(to_left[c + 1] if exchange and c < n - 1
+                                else None, c)
+            m_ext = torch.cat([fl, M[c], fr])
+            e_ext = torch.cat([el, e_blk[c], er], dim=1)
+            r_ext = (torch.cat([rl, r_blk[c], rr], dim=1) if has_rig
+                     else None)
+            m_new, bp_ext = dp_block(m_ext, e_ext, r_ext, pref_left,
+                                     blk == 0, delta_x, has_rig, H)
+            M[c] = m_new[G:G + Wl]
+            bps[c].append(bp_ext[:, G:G + Wl])
+    return M, [torch.cat(b, dim=0) for b in bps]
+
+
+def _backtrack_gathered(M_loc, bp_loc, pref_left: bool, dev):
+    """The seam [H] on dev, from the shards' frontiers and backpointers
+    gathered there."""
+    M_all = torch.cat([m.to(dev) for m in M_loc])
+    bp_all = torch.cat([b.to(dev) for b in bp_loc], dim=1)
+    return dp_cuda.backtrack(M_all, bp_all, pref_left)
+
+
+def find_seam_sharded(mesh: Mesh, e_tot, rig, pref_left: bool,
+                      delta_x: int, has_rig: bool) -> torch.Tensor:
+    """Column-sharded seam search over the mesh's first row. e_tot:
+    [H, Wb] (+inf at invalid lanes, bias folded in). The forward DP runs
+    sharded, the backtrack on the gathered map; the seam [H] i32 (on the
+    first device) equals core.dp.find_seam's."""
+    H, Wb = e_tot.shape
+    devs = mesh.devices[0]
+    n = len(devs)
+    if Wb % n != 0:
+        raise LqrImageError(
+            _("width {w} cannot shard evenly over {n} 'cols' devices")
+            .format(w=Wb, n=n))
+    Wl = Wb // n
+    R = _block_rows(H, delta_x, Wl)
+
+    def split(a):
+        return [a[:, c * Wl:(c + 1) * Wl].to(devs[c]).contiguous()
+                for c in range(n)]
+
+    M, bp = _dp_local_blocked(split(e_tot), split(rig) if has_rig else None,
+                              pref_left, delta_x, has_rig, H, R, devs)
+    return _backtrack_gathered(M, bp, pref_left, devs[0])
+
+
+def _local_energy(cb, w: int, nrg: int, glane, devices):
+    """Per-shard energy [H, Wl] of the compacted reader planes at width w:
+    the x gradient with a one-column halo from each neighbour (the image's
+    edges replicated), the rest as core/energy.py computes it."""
+    n = len(cb)
+    out = []
+    for c, b in enumerate(cb):
+        if EnergyFunc(nrg) == EnergyFunc.NULL:
+            e = torch.zeros_like(b)
+        else:
+            bl_col = (cb[c - 1][:, -1:].to(devices[c]) if c > 0
+                      else torch.zeros_like(b[:, :1]))
+            br_col = (cb[c + 1][:, :1].to(devices[c]) if c < n - 1
+                      else torch.zeros_like(b[:, :1]))
+            br = torch.cat([b[:, 1:], br_col], dim=1)
+            br = torch.where(glane[c] >= w - 1, b, br)   # replicate right
+            bl = torch.cat([bl_col, b[:, :-1]], dim=1)
+            bl = torch.where(glane[c] == 0, b, bl)       # replicate left
+            e = energy_from_gx((br - bl) * _f32(0.5), b, nrg)
+        out.append(torch.where(glane[c] < w, e, INF))
+    return out
+
+
+def _carve_seam_local(cb, cbs, crg, vs, w: int, s: int, pref_left: bool,
+                      ref_w: int, *, devices, H: int, delta_x: int, nrg: int,
+                      R: int):
+    """One carve step of one image on its column shards (lists of [H, Wl]
+    tensors; cbs / crg None when absent): energy with a one-column halo,
+    the blocked DP, the backtrack of the gathered map, the compaction with
+    one carry column from the right neighbour, and the commit of seam s to
+    vs. Returns (cb', cbs', crg', vs').
+
+    The commit: a visible column's global rank among its row's visible
+    columns is its rank within its shard plus the exclusive prefix of the
+    shards' counts, so seam s lands where that rank equals seam[y]."""
+    n = len(cb)
+    Wl = cb[0].shape[-1]
+    glane = [c * Wl + torch.arange(Wl, dtype=torch.int32, device=dv)[None, :]
+             for c, dv in enumerate(devices)]
+
+    e = _local_energy(cb, w, nrg, glane, devices)
+    if cbs is not None:
+        e = [torch.where(glane[c] < w, e[c] + cbs[c], INF) for c in range(n)]
+    M, bp = _dp_local_blocked(e, crg, pref_left, delta_x, crg is not None,
+                              H, R, devices)
+    seam = _backtrack_gathered(M, bp, pref_left, devices[0])
+
+    # compaction: a left shift of columns >= seam, the right neighbour's
+    # first column (one packed copy of every plane's) moving in at the end
+    planes = [cb] + [p for p in (cbs, crg) if p is not None]
+    packed = [torch.stack([p[c][:, 0] for p in planes]) for c in range(n)]
+    out = [[None] * n for _ in planes]
+    counts, seams = [], []
+    for c in range(n):
+        seam_c = seam.to(devices[c])
+        seams.append(seam_c)
+        recv = (packed[c + 1].to(devices[c]) if c < n - 1
+                else torch.zeros_like(packed[c]))
+        ge = glane[c] >= seam_c[:, None]
+        keep = glane[c] < w - 1
+        for i, p in enumerate(planes):
+            shifted = torch.cat([p[c][:, 1:], recv[i][:, None]], dim=1)
+            out[i][c] = torch.where(keep, torch.where(ge, shifted, p[c]), 0)
+        visible = (vs[c] == 0) & (glane[c] < ref_w)
+        counts.append(visible.to(torch.int32).sum(dim=1))
+
+    # commit: the exclusive prefix of the shards' visible counts per row
+    allc = torch.stack([k.to(devices[0]) for k in counts])      # [n, H]
+    prefix = torch.cumsum(allc, dim=0) - allc
+    vs_out = []
+    for c in range(n):
+        visible = (vs[c] == 0) & (glane[c] < ref_w)
+        vis = visible.to(torch.int32)
+        rank = (torch.cumsum(vis, dim=1) - vis
+                + prefix[c].to(devices[c])[:, None])
+        hit = visible & (rank == seams[c][:, None])
+        vs_out.append(torch.where(hit, s, vs[c]))
+    it = iter(out[1:])
+    cbs2 = next(it) if cbs is not None else None
+    crg2 = next(it) if crg is not None else None
+    return out[0], cbs2, crg2, vs_out
+
+
+def extend_map_sharded(mesh: Mesh, cfg: EngineConfig, sst: ShardedState,
+                       k) -> ShardedState:
+    """The column-sharded resize: k[b] further seams (scalar or [B]) into
+    every image of a state placed by shard_batch_state(mesh, cols=True).
+    Each seam step runs on the image's column shards (_carve_seam_local);
+    the visibility map equals the unsharded resize's bit for bit."""
+    H, Wb = cfg.H, cfg.Wb
+    n_cols = mesh.shape["cols"]
+    R = _block_rows(H, cfg.delta_x, Wb // n_cols)
+    B = sum(row[0].vs.shape[0] for row in sst.shards)
+    k = np.broadcast_to(np.asarray(k, np.int64), (B,))
+    rows, start = [], 0
+    for d, row in enumerate(sst.shards):
+        devs = mesh.devices[d]
+        Bd = row[0].vs.shape[0]
+        kd = k[start:start + Bd]
+        start += Bd
+        ref_w, depth = row[0].ref_w, row[0].depth.copy()
+
+        def split(name):
+            if getattr(row[0], name) is None:
+                return [None] * Bd
+            return [[getattr(s, name)[i] for s in row] for i in range(Bd)]
+
+        cb, cbs, crg, vs = (split(f) for f in ("cur_b", "cur_bias",
+                                               "cur_rig", "vs"))
+        for j in range(int(kd.max()) if Bd else 0):
+            for i in range(Bd):
+                if j >= kd[i]:
+                    continue
+                s = int(depth[i] + 1)
+                cb[i], cbs[i], crg[i], vs[i] = _carve_seam_local(
+                    cb[i], cbs[i], crg[i], vs[i], int(ref_w[i] - depth[i]),
+                    s, eng.pref_is_left(s, cfg.side_switch_freq),
+                    int(ref_w[i]), devices=devs, H=H, delta_x=cfg.delta_x,
+                    nrg=cfg.nrg, R=R)
+                depth[i] += 1
+
+        def join(parts, c, old):
+            if old is None:
+                return None
+            return torch.stack([parts[i][c] for i in range(Bd)])
+
+        rows.append(tuple(
+            s._replace(cur_b=join(cb, c, s.cur_b),
+                       cur_bias=join(cbs, c, s.cur_bias),
+                       cur_rig=join(crg, c, s.cur_rig),
+                       vs=join(vs, c, s.vs), depth=depth.copy())
+            for c, s in enumerate(row)))
+    return sst._replace(shards=tuple(rows))
+
+
+def sharded_seam_step(mesh: Mesh, images, widths, pref_left: bool,
+                      delta_x: int = 1, nrg: int = 0, bias=None, rig=None,
+                      has_bias: bool = False, has_rig: bool = False):
+    """One carve step over a batch with the column-sharded seam search.
+
+    images: [B, H, Wb, C] u8; widths: [B]; bias / rig: [B, H, Wb] f32 (or
+    None). Computes each image's energy, folds in the bias, finds the seam
+    with find_seam_sharded and compacts every plane. Returns (images',
+    bias', rig', seams [B, H] i32)."""
+    B, H, Wb, C = images.shape
+    dev = images.device
+    lane = torch.arange(Wb, device=dev)[None, :]
+    outs = []
+    for b in range(B):
+        w = int(widths[b])
+        e = energy_from_plane(reader_plane(images[b], nrg), w, nrg)
+        if has_bias:
+            e = torch.where(lane < w, e + bias[b], INF)
+        seam = find_seam_sharded(mesh, e, rig[b] if has_rig else None,
+                                 pref_left, delta_x, has_rig).to(dev)
+        ge = lane >= seam[:, None]
+        keep = lane < w - 1
+
+        def compact(a):
+            g, k = (ge[..., None], keep[..., None]) if a.ndim == 3 else (ge,
+                                                                          keep)
+            return torch.where(k, torch.where(g, torch.roll(a, -1, dims=1),
+                                              a), 0)
+
+        outs.append((compact(images[b]),
+                     compact(bias[b]) if has_bias else None,
+                     compact(rig[b]) if has_rig else None, seam))
+    img2, bias2, rig2, seams = zip(*outs)
+    return (torch.stack(img2),
+            torch.stack(bias2) if has_bias else bias,
+            torch.stack(rig2) if has_rig else rig, torch.stack(seams))

@@ -166,3 +166,56 @@ def test_errors_and_messages_match_jax(monkeypatch):
             for mod in (ti18n, ji18n):
                 mod.reset()
     assert ti18n.BUNDLED_DIR == ji18n.BUNDLED_DIR
+
+
+def test_batch_state_round_trip_and_continuation():
+    """A ragged JAX batch carved part-way (masks, an aux image) goes on in
+    the port, bit-equal to JAX's continuation, and comes back."""
+    from lqr_tpu.parallel import batch as jbatch
+    from lqr_tpu_torch.convert import (batch_state_from_numpy,
+                                       batch_state_to_numpy)
+    from lqr_tpu_torch.parallel import batch as tbatch
+    rng = np.random.default_rng(21)
+    sizes = [(14, 60), (10, 50), (14, 40)]
+    imgs = [(random_image(rng, h, w, 3) // 8) * 8 for h, w in sizes]
+    biases = [rng.standard_normal((h, w)).astype(np.float32)
+              for h, w in sizes]
+    aux = [[random_image(rng, h, w, 1)] for h, w in sizes]
+    j = jbatch.BatchCarver(imgs, biases=biases, rigidity=3.0, delta_x=2,
+                           aux=aux, use_pallas=False)
+    j.carve(np.array([4, 6, 2]))
+    fields = dataclasses.asdict(j.cfg)
+    tcfg, device = config_from_jax_fields(fields)
+    arrays = dict(_to_numpy(j.state), heights=j.heights)
+    t, heights = batch_state_from_numpy(fields, arrays, device)
+    np.testing.assert_array_equal(heights, j.heights)
+    np.testing.assert_array_equal(t.ref_w, [60, 50, 40])
+    np.testing.assert_array_equal(t.depth, [4, 6, 2])
+    back = batch_state_to_numpy(t, heights)
+    for name in _FIELDS + ("heights",):
+        if name == "aux":
+            np.testing.assert_array_equal(back[name][0], arrays[name][0])
+        elif arrays[name] is None:
+            assert back[name] is None
+        else:
+            assert back[name].dtype == np.asarray(arrays[name]).dtype, name
+            np.testing.assert_array_equal(back[name], arrays[name])
+
+    n = np.array([3, 0, 5])
+    j.carve(n)
+    t = tbatch.extend_batched(tcfg, t, n, heights,
+                              tbatch.rigc_table(heights, 2))
+    for name in ("vs", "cur_b", "cur_bias", "cur_rig"):
+        np.testing.assert_array_equal(getattr(t, name).numpy(),
+                                      np.asarray(getattr(j.state, name)))
+    w = np.array([53, 44, 33])
+    img, aux_t = tbatch.materialize_all_batched(tcfg, t, w, tcfg.Wb)
+    img_j, aux_j = jbatch.materialize_all_batched(j.cfg, j.state,
+                                                  jnp.asarray(w), j.cfg.Wb)
+    np.testing.assert_array_equal(img.numpy(), np.asarray(img_j))
+    np.testing.assert_array_equal(aux_t[0].numpy(), np.asarray(aux_j[0]))
+    with pytest.raises(ValueError, match="heights"):
+        batch_state_from_numpy(fields, dict(arrays, heights=[14, 10]),
+                               device)
+    with pytest.raises(ValueError, match="ref_w"):
+        batch_state_from_numpy(fields, dict(arrays, ref_w=[60, 50]), device)

@@ -135,3 +135,37 @@ def test_wrappers_check_inputs_and_count_no_cpu_launches():
     seam = dp_cuda.find_seam(e, None, True, 1, False)
     assert seam.tolist() == [0] * 8
     assert dp_cuda.LAUNCHES == before     # CPU tensors run the plain path
+
+
+@pytest.mark.parametrize("h", [1, 2, 9, 16])
+@pytest.mark.parametrize("dx,has_rig", [(1, False), (2, True)])
+def test_ragged_dp_matches_jax_core(h, dx, has_rig):
+    """dp_forward(h=, rigc_vec=): rows >= h pass the frontier through with
+    bp = 0, and the image's own rigidity coefficients replace the table of
+    the padded height."""
+    from lqr_tpu_torch.parallel.batch import rigc_table
+    H, W, Wb = 16, 100, 128
+    e, rig = _case(h + dx, H, W, Wb, has_rig)
+    rv = rigc_table([h], dx)[0]
+    for pref in (True, False):
+        M_want, bp_want = jdp.dp_forward(
+            jnp.asarray(e), jnp.asarray(rig), jnp.bool_(pref), dx, has_rig,
+            h=jnp.int32(h), rigc_vec=jnp.asarray(rv))
+        M_got, bp_got = dp_cuda.dp_forward(
+            torch.from_numpy(e), torch.from_numpy(rig) if has_rig else None,
+            pref, dx, has_rig, h=h, rigc_vec=torch.from_numpy(rv))
+        np.testing.assert_array_equal(M_got.numpy(), np.asarray(M_want))
+        np.testing.assert_array_equal(bp_got.numpy(), np.asarray(bp_want))
+        got = dp_cuda.find_seam(torch.from_numpy(e),
+                                torch.from_numpy(rig) if has_rig else None,
+                                pref, dx, has_rig, h=h,
+                                rigc_vec=torch.from_numpy(rv))
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jdp.backtrack(M_want, bp_want,
+                                                  jnp.bool_(pref))))
+    with pytest.raises(ValueError):
+        dp_cuda.dp_forward(torch.from_numpy(e), None, True, dx, False,
+                           h=H + 1)
+    with pytest.raises(ValueError):
+        dp_cuda.dp_forward(torch.from_numpy(e), None, True, dx, False,
+                           rigc_vec=torch.zeros(dx + 2))

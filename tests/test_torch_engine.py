@@ -3,6 +3,8 @@ bit-exact energies, visibility maps, compacted planes and materialized
 images (u8-equal), shrink and enlarge, delta_x 1 and 2, with and without
 rigidity. The JAX engine runs with use_pallas=False."""
 
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -130,3 +132,53 @@ def test_pref_is_left_matches_jax():
         for s in range(1, 30):
             assert teng.pref_is_left(s, freq) == bool(
                 jeng.pref_is_left(jnp.int32(s), freq))
+
+
+@pytest.mark.parametrize("nrg", list(EnergyFunc))
+def test_ragged_energy_matches_jax(nrg):
+    """energy_from_plane(h=...): the bottom edge replicates at the true
+    height h - 1 of a plane padded to more rows."""
+    rng = np.random.default_rng(int(nrg) + 40)
+    H, w, Wb = 12, 50, 128
+    img = np.zeros((H, Wb, 3), np.uint8)
+    img[:, :w] = _quantized(rng, H, w, 3)
+    b = ten.reader_plane(torch.from_numpy(img), int(nrg))
+    for h in (1, 2, 7, H):
+        want = jen.energy_from_plane(jnp.asarray(b.numpy()), jnp.int32(w),
+                                     int(nrg), h=jnp.int32(h))
+        got = ten.energy_from_plane(b, w, int(nrg), h=h)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want),
+                                      err_msg=f"h={h}")
+
+
+@pytest.mark.parametrize("h", [1, 6, 13, 16])
+def test_ragged_carve_once_matches_jax(h):
+    """_carve_once with the true height h and per-image rigc_vec of a map
+    padded to 16 rows: the seam over the whole buffer (rows >= h carry
+    seam[h - 1]) and every compacted plane, as lqr_tpu.core.engine's."""
+    from lqr_tpu_torch.parallel.batch import rigc_table
+    rng = np.random.default_rng(h)
+    H, w, Wb = 16, 90, 128
+    img = np.zeros((H, w, 3), np.uint8)
+    img[:h] = _quantized(rng, h, w, 3)
+    bias = np.round(rng.standard_normal((H, w)) * 4).astype(np.float32) / 8
+    rig = np.abs(np.round(rng.standard_normal((H, w)) * 4)).astype(
+        np.float32)
+    jcfg, j, tcfg, t = _states(img, Wb, 2, 1.0, bias)
+    j = j._replace(cur_rig=jnp.asarray(np.pad(rig, ((0, 0), (0, Wb - w)))))
+    t = t._replace(cur_rig=torch.from_numpy(np.pad(rig,
+                                                   ((0, 0), (0, Wb - w)))))
+    for nrg in (0, 1):
+        jc = dataclasses.replace(jcfg, nrg=nrg)
+        tc = dataclasses.replace(tcfg, nrg=nrg)
+        rv = rigc_table([h], 2)[0]
+        for s in (1, 11):
+            want = jeng._carve_once(jc, j.cur_b, j.cur_bias, j.cur_rig,
+                                    jnp.int32(w), jnp.int32(s),
+                                    h=jnp.int32(h), rigc_vec=jnp.asarray(rv))
+            got = teng._carve_once(tc, t.cur_b, t.cur_bias, t.cur_rig, None,
+                                   w, s, h=h, rigc_vec=torch.from_numpy(rv))
+            for g, e in zip(got[:4], want):
+                np.testing.assert_array_equal(g.numpy(), np.asarray(e),
+                                              err_msg=f"{nrg=} {s=}")
+            assert (got[0][h:] == got[0][h - 1]).all()

@@ -20,6 +20,12 @@ img = (np.arange(12 * 40 * 3) % 251).astype(np.uint8).reshape(12, 40, 3)
 c = lqr_tpu_torch.Carver(img, device="cpu")
 c.resize(33, 12)
 assert c.get_image().shape == (12, 33, 3)
+from lqr_tpu_torch.parallel import make_mesh
+b = lqr_tpu_torch.BatchCarver([img, img[:9]], device="cpu")
+b.carve([2, 3])
+s = lqr_tpu_torch.BatchCarver([img], mesh=make_mesh(2, data=1))
+s.carve(2)
+assert (s.state.vs == b.state.vs[:1]).all()
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "lqr_tpu"))
 assert not leaked, leaked

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version on the same CUDA inputs, bit-exact (tolerance 0), a refused launch
-that must raise, and the Carver's CUDA path against the C++ reference.
+that must raise, and the Carver's, BatchCarver's and the column-sharded
+resize's CUDA paths against the C++ reference.
 
 Marked ``cuda``; every test skips where CUDA is unavailable. On a machine
 with an NVIDIA GPU (no jax needed, so skip tests/conftest.py):
@@ -67,15 +68,189 @@ def test_kernels_match_plain(cuda, H, W, Wb, dx, has_rig):
 
 
 def test_refused_launch_raises(cuda):
+    """A bad argument never launches: the wrapper refuses delta_x = 64, and
+    so does the kernel's own launcher when called past the wrapper."""
+    from lqr_tpu_torch.ops import _build
     before = dict(dp_cuda.LAUNCHES)
-    big = torch.zeros((2, 32768), dtype=torch.float32, device=cuda)
+    e = torch.zeros((2, 256), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="delta_x=64"):
+        dp_cuda.dp_forward(e, None, True, 64, False)
+    lib = _build.load()
+    m = torch.empty(256, device=cuda)
+    bp = torch.empty((2, 256), dtype=torch.int8, device=cuda)
+    rigc = torch.zeros(65, device=cuda)
+    rc = lib.lqr_dp_forward(e.data_ptr(), None, rigc.data_ptr(), 1, 64, 2,
+                            256, 2, m.data_ptr(), bp.data_ptr(), None,
+                            torch.cuda.current_stream().cuda_stream)
     with pytest.raises(RuntimeError, match="lqr_dp_forward launch failed"):
-        dp_cuda.dp_forward(big, None, True, 1, False)
+        _build.check(lib, rc, "lqr_dp_forward")
     assert dp_cuda.LAUNCHES == before
     # the refused launch leaves no pending error behind
     torch.cuda.synchronize()
     assert torch.equal(torch.ones(3, device=cuda) * 2,
                        torch.full((3,), 2.0, device=cuda))
+
+
+@pytest.mark.parametrize("dx,has_rig,h", [(1, False, None), (2, True, 30)])
+def test_wide_dp_matches_plain(cuda, dx, has_rig, h):
+    """Wb = 32768: two frontier rows exceed the shared memory, so the
+    kernel keeps them in its global scratch (full height, and ragged)."""
+    H, Wb = 48, 32768
+    assert dp_cuda.frontier_scratch(Wb, cuda) is not None
+    e, rig = _case(7 + dx, H, Wb - 5, Wb, has_rig, cuda)
+    for pref in (True, False):
+        M_k, bp_k = dp_cuda.dp_forward(e, rig, pref, dx, has_rig, h=h)
+        M_p, bp_p = dp_cuda.dp_forward_plain(e, rig, pref, dx, has_rig, h=h)
+        torch.cuda.synchronize()
+        assert torch.equal(M_k, M_p) and torch.equal(bp_k, bp_p), pref
+
+
+@pytest.mark.parametrize("h", [1, 17, 40])
+def test_ragged_dp_matches_plain(cuda, h):
+    """Rows >= h pass the frontier through with bp = 0; a per-image rigc."""
+    from lqr_tpu_torch.parallel.batch import rigc_table
+    e, rig = _case(h, 40, 200, 256, True, cuda)
+    rigc = torch.from_numpy(rigc_table([h], 2)[0]).to(cuda)
+    for pref in (True, False):
+        got = dp_cuda.dp_forward(e, rig, pref, 2, True, h=h, rigc_vec=rigc)
+        want = dp_cuda.dp_forward_plain(e, rig, pref, 2, True, h=h,
+                                        rigc_vec=rigc)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("first", [False, True])
+@pytest.mark.parametrize("dx,has_rig", [(1, False), (1, True), (2, True)])
+def test_dp_block_matches_plain(cuda, dx, has_rig, first):
+    """The sharded DP block at the 2048^2 shard width on four shards:
+    R = 32 rows over We = 512 + 2 * 32 * delta_x, +inf halo edges."""
+    from lqr_tpu_torch.ops import dp_block
+    R, G = 32, 32 * dx
+    We = 512 + 2 * G
+    e, rig = _case(dx * 10 + first, R, We - G, We, has_rig, cuda)
+    m0 = e[-1].flip(0).contiguous()
+    for pref in (True, False):
+        before = dp_cuda.LAUNCHES["dp_block"]
+        got = dp_block.dp_block(m0, e, rig, pref, first, dx, has_rig, 2048)
+        want = dp_block.dp_block_plain(m0, e, rig, pref, first, dx, has_rig,
+                                       2048)
+        torch.cuda.synchronize()
+        assert dp_cuda.LAUNCHES["dp_block"] == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_dp_block_refuses_wide_slab(cuda):
+    """A slab whose two frontier rows exceed the shared memory is refused
+    before any launch."""
+    from lqr_tpu_torch.ops import dp_block
+    e, _ = _case(3, 2, 32768, 32768, False, cuda)
+    before = dict(dp_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="shared memory"):
+        dp_block.dp_block(e[0].contiguous(), e, None, True, False, 1, False,
+                          2048)
+    assert dp_cuda.LAUNCHES == before
+
+
+def test_resident_batched_matches_plain(cuda):
+    """A ragged batch of four maps with bias and rigidity in one launch:
+    per-map w0, d0, kc (one of them 0) and true height."""
+    from lqr_tpu_torch.parallel.batch import rigc_table
+    B, H, W, Wb, dx = 4, 40, 250, 256, 2
+    maps = [_resident_planes(20 + i, H, W, Wb, cuda) for i in range(4)]
+    b, bias, rig, pm = (torch.stack(p) for p in zip(*maps))
+    heights = [40, 31, 12, 40]
+    for i, h in enumerate(heights):
+        for plane in (b, bias, rig):
+            plane[i, h:] = 0
+    w0, d0, kc = [241, 250, 200, 230], [9, 0, 50, 20], [23, 30, 0, 7]
+    rigc = torch.from_numpy(rigc_table(heights, dx)).to(cuda)
+    for nrg in (0, 1):
+        args = (b, bias, rig, pm, w0, d0, kc, heights, rigc, dx, True, True,
+                nrg, 2, engine.KC)
+        before = dp_cuda.LAUNCHES["carve_resident_batched"]
+        got = carve_resident.carve_chunk_resident_batched(*args)
+        params = carve_resident._batched_params(B, H, Wb, w0, d0, kc,
+                                                heights, engine.KC)
+        want = carve_resident.carve_chunk_resident_batched_plain(
+            b, bias, rig, pm, params, rigc, dx, True, True, nrg, 2,
+            engine.KC)
+        torch.cuda.synchronize()
+        assert dp_cuda.LAUNCHES["carve_resident_batched"] == before + 1
+        for g, e in zip(got, want):
+            assert torch.equal(g, e), nrg
+
+
+def test_wide_carver_cuda_matches_native(cuda):
+    """A map wider than the DP kernel's shared-memory frontier carves on
+    the card through the per-seam kernels."""
+    img = _image(5, 16, 32700)
+    c = lqr_tpu_torch.Carver(img, device="cuda")
+    before = dict(dp_cuda.LAUNCHES)
+    c.resize(32697, 16)
+    assert dp_cuda.LAUNCHES["dp_forward"] == before["dp_forward"] + 3
+    vs = native.carve(img, 3)
+    np.testing.assert_array_equal(c.vmap_dump().data, vs)
+    np.testing.assert_array_equal(c.get_image(),
+                                  native.materialize(img, vs, 32697))
+
+
+def test_batch_carver_cuda_matches_native(cuda):
+    """A ragged BatchCarver with biases, rigmasks and an aux image on the
+    batched resident kernel, against the C++ reference per image; the
+    per-seam route gives the same state."""
+    from lqr_tpu_torch.parallel import BatchCarver
+    from lqr_tpu_torch.parallel import batch as tb
+    rng = np.random.default_rng(8)
+    sizes = [(40, 150), (64, 200), (25, 90), (64, 120)]
+    imgs = [_image(30 + i, h, w) for i, (h, w) in enumerate(sizes)]
+    biases = [np.round(rng.standard_normal((h, w)) * 4).astype(np.float32)
+              / 8 for h, w in sizes]
+    rigm = [np.abs(rng.standard_normal((h, w))).astype(np.float32)
+            for h, w in sizes]
+    aux = [[rng.integers(0, 256, (h, w, 4)).astype(np.uint8)]
+           for h, w in sizes]
+    n = np.array([20, 31, 9, 0])
+    bc = BatchCarver(imgs, rigidity=20.0, biases=biases, rigmasks=rigm,
+                     aux=aux, device="cuda")
+    before = dp_cuda.LAUNCHES["carve_resident_batched"]
+    bc.carve(n)
+    assert dp_cuda.LAUNCHES["carve_resident_batched"] == before + 1
+    vs = bc.state.vs.cpu().numpy()
+    outs = bc.images_at(bc.widths - n)
+    auxs = bc.aux_at(bc.widths - n)
+    for i, ((h, w), im) in enumerate(zip(sizes, imgs)):
+        ref = native.carve(im, int(n[i]), bias=biases[i],
+                           rig=rigm[i] * np.float32(20.0))
+        np.testing.assert_array_equal(vs[i, :h, :w], ref)
+        np.testing.assert_array_equal(outs[i],
+                                      native.materialize(im, ref, w - n[i]))
+        np.testing.assert_array_equal(
+            auxs[i][0], native.materialize(aux[i][0], ref, w - n[i]))
+    st0 = BatchCarver(imgs, rigidity=20.0, biases=biases, rigmasks=rigm,
+                      device="cuda")
+    per_seam = tb._extend_per_seam(st0.cfg, st0.state, n, st0.heights)
+    assert torch.equal(per_seam.vs, bc.state.vs)
+    assert torch.equal(per_seam.cur_b, bc.state.cur_b)
+
+
+def test_column_sharded_cuda_matches_native(cuda):
+    """Four column shards on one card: every block of rows on the dp_block
+    kernel, the seams equal to the C++ reference's."""
+    from lqr_tpu_torch.parallel import BatchCarver, make_mesh
+    img = _image(9, 64, 512)
+    mesh = make_mesh(devices=[cuda] * 4, data=1)
+    bc = BatchCarver([img], mesh=mesh)
+    assert bc.col_sharded
+    before = dict(dp_cuda.LAUNCHES)
+    bc.carve(8)
+    # R = 32 rows per block (64 rows: 2 blocks) on each of 4 shards
+    assert dp_cuda.LAUNCHES["dp_block"] == before["dp_block"] + 8 * 2 * 4
+    assert dp_cuda.LAUNCHES["backtrack"] == before["backtrack"] + 8
+    assert dp_cuda.LAUNCHES["dp_forward"] == before["dp_forward"]
+    vs = native.carve(img, 8)
+    np.testing.assert_array_equal(bc.state.vs[0].cpu().numpy(), vs)
+    np.testing.assert_array_equal(bc.images_at(504)[0],
+                                  native.materialize(img, vs, 504))
 
 
 def test_carver_cuda_matches_native(cuda):
@@ -89,7 +264,8 @@ def test_carver_cuda_matches_native(cuda):
                                   native.materialize(img, vs, 230))
     # 192 x 256 takes the resident route: one launch for the 26 seams
     launched = {k: dp_cuda.LAUNCHES[k] - before[k] for k in before}
-    assert launched == {"dp_forward": 0, "backtrack": 0, "carve_resident": 1}
+    assert launched == {"dp_forward": 0, "backtrack": 0, "carve_resident": 1,
+                        "carve_resident_batched": 0, "dp_block": 0}
     c.resize(270, 192)
     np.testing.assert_array_equal(c.get_image(),
                                   native.materialize(img, vs, 270))
