@@ -22,8 +22,14 @@ Phases, one line each (any failure exits non-zero):
              height), three at 480x640 and two at 1024x1024. dp_block: R=32
              rows at the
              2048^2 shard width on four shards (512 + 2*32*delta_x), delta_x
-             1 and 2, rigidity on and off, `first` on and off. Kernel and
-             plain times at the shapes of the paths below.
+             1 and 2, rigidity on and off, `first` on and off. The fused
+             seam step's two kernels: dp_energy_forward at 2048x2048
+             (delta_x=1, both side preferences; delta_x=2 with rigidity), at
+             cfg2 with bias and rigidity under GRAD_XABS, GRAD_NORM and
+             NULL, and at a width below the buffer; backtrack_compact at
+             2048x2048, delta_x 1 and 2, with and without bias and
+             rigidity, at full width and below it. Kernel and plain times
+             at the shapes of the paths below.
 4. slice   — the paths through the public surfaces, each with the launch
              counts set to 0 just before it and read just after: Carver at
              2048x2048, 100 seams (the per-seam kernels); cfg2, 1024x768
@@ -37,14 +43,24 @@ Phases, one line each (any failure exits non-zero):
              on 4 column shards of the one card, 100 seams (dp_block and the
              backtrack kernel). Each visibility map must equal the C++
              reference carver's bit for bit, each image (and aux image) its
-             materialization u8 for u8.
-5. timing  — synchronized, median of 3 fresh runs: 100 seams through
-             extend_map at 2048x2048, both routes at 1024x768 with masks
-             and at 512x384; img_seams/s of BatchCarver.carve on cfg5 and
-             on the cfg4 wave; us/seam of the column-sharded 2048x2048.
+             materialization u8 for u8. Then the fused seam step
+             (ops.carve_step, one step per seam on the compacted planes,
+             the seams committed every 128 as the JAX engine commits
+             them): 100 seams at 2048x2048 with the energy in torch ops and
+             the DP kernel, and with the energy inline; cfg2's image with
+             its bias and rigidity planes, energy inline.
+5. timing  — synchronized, median of 3 fresh runs: 100 seams at 2048x2048
+             through extend_map and through both modes of the fused step,
+             both extend_map routes at 1024x768 with masks and at 512x384;
+             img_seams/s of BatchCarver.carve on cfg5 and on the cfg4
+             wave; us/seam of the column-sharded 2048x2048.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+The card's name and power limit (nvidia-smi) stand on a line of their own;
+the line before the last is a JSON object with one entry per kernel: its
+launches on its path, its largest error against its plain version, its time
+and the plain version's, and its bound (the larger of its bytes over the
+H100's memory rate and its operations over its f32 rate); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -253,6 +269,90 @@ def check_kernels(device, n: int) -> dict:
     return {"err": err, "ms": ms, "plain_ms": plain_ms}
 
 
+def check_carve_step(device, n: int) -> dict:
+    """Phase 3: the fused seam step's two kernels against their plain
+    versions on the same CUDA inputs (tolerance 0 on M_last, bp, the seam
+    and every compacted plane at every column); returns their largest
+    errors and their times at n x n."""
+    import torch
+    from lqr_tpu_torch.core.energy import reader_plane
+    from lqr_tpu_torch.core.state import EngineConfig, init_state
+    from lqr_tpu_torch.ops import carve_step as cs
+
+    b = reader_plane(torch.from_numpy(make_test_image(n)).to(device), 0)
+    rng = np.random.default_rng(8)
+    bias = torch.from_numpy(np.round(rng.standard_normal((n, n)) * 4)
+                            .astype(np.float32) / 8).to(device)
+    rig = torch.from_numpy(np.round(np.abs(rng.standard_normal((n, n))) * 4)
+                           .astype(np.float32) / 4).to(device)
+    h, w = CFG2
+    c2 = cfg2_inputs()
+    st2 = init_state(EngineConfig(H=h, Wb=w, C=3, has_bias=True,
+                                  has_rig=True), c2["img"], bias=c2["bias"],
+                     rig=c2["rig"], device=device)
+    p2 = (st2.cur_b, st2.cur_bias, st2.cur_rig)
+    # (label, (b, bias, rig), w, delta_x, nrg, side preferences)
+    fwd = [(f"{n}x{n}", (b, None, None), n, 1, 0, (True, False)),
+           (f"{n}x{n} rig", (b, None, rig), n, 2, 0, (True, False)),
+           (f"{n}x{n} w={n - 37} bias+rig", (b, bias, rig), n - 37, 1, 1,
+            (False,))]
+    fwd += [(f"cfg2 {w}x{h} bias+rig nrg={nrg}", p2, w, 1, nrg,
+             (True, False)) for nrg in (0, 2, 6)]
+    bt = [(f"{n}x{n}", (b, None, None), n, 1),
+          (f"{n}x{n} bias+rig", (b, bias, rig), n, 2),
+          (f"{n}x{n} w={n - 37}", (b, None, None), n - 37, 2),
+          (f"{n}x{n} w={n - 37} bias+rig", (b, bias, rig), n - 37, 1)]
+    err = {"dp_energy_forward": 0.0, "backtrack_compact": 0.0}
+    for label, planes, ww, dx, nrg, prefs in fwd:
+        flags = (planes[1] is not None, planes[2] is not None)
+        for pref in prefs:
+            args = planes + (ww, pref, dx) + flags + (nrg,)
+            got = cs.dp_energy_forward(*args)
+            want = cs.dp_energy_forward_plain(*args)
+            torch.cuda.synchronize()
+            e = max(_max_err(got[0], want[0]), _max_err(got[1], want[1]))
+            say("kernels", f"dp_energy_forward {label} delta_x={dx} "
+                f"pref_left={pref}: max_abs_err={e} (tolerance 0)")
+            if e != 0.0:
+                raise AssertionError(f"dp_energy_forward differs from plain "
+                                     f"on {label}")
+            err["dp_energy_forward"] = max(err["dp_energy_forward"], e)
+    for label, planes, ww, dx in bt:
+        flags = (planes[1] is not None, planes[2] is not None)
+        for pref in (True, False):
+            M, bp = cs.dp_energy_forward_plain(*planes, ww, pref, dx, *flags,
+                                               0)
+            got = cs.backtrack_compact(M, bp, *planes, ww, pref, *flags)
+            want = cs.backtrack_compact_plain(M, bp, *planes, ww, pref,
+                                              *flags)
+            torch.cuda.synchronize()
+            e = max(_max_err(g, p) for g, p in zip(got, want)
+                    if g is not None)
+            say("kernels", f"backtrack_compact {label} delta_x={dx} "
+                f"pref_left={pref}: max_abs_err={e} (tolerance 0)")
+            if e != 0.0:
+                raise AssertionError(f"backtrack_compact differs from plain "
+                                     f"on {label}")
+            err["backtrack_compact"] = max(err["backtrack_compact"], e)
+
+    main = ((b, None, None), n, True, 1, False, False, 0)
+    M, bp = cs.dp_energy_forward_plain(*main[0], *main[1:])
+    bt_args = (M, bp, b, None, None, n, True, False, False)
+    ms = {"dp_energy_forward": _cuda_ms(
+              lambda: cs.dp_energy_forward(*main[0], *main[1:]), 20),
+          "backtrack_compact": _cuda_ms(
+              lambda: cs.backtrack_compact(*bt_args), 20)}
+    plain_ms = {"dp_energy_forward": _cuda_ms(
+                    lambda: cs.dp_energy_forward_plain(*main[0], *main[1:]),
+                    2),
+                "backtrack_compact": _cuda_ms(
+                    lambda: cs.backtrack_compact_plain(*bt_args), 2)}
+    for k in ms:
+        say("kernels", f"{k} at {n}x{n} delta_x=1: kernel {ms[k]:.4f} ms, "
+            f"plain {plain_ms[k]:.4f} ms")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms}
+
+
 def check_resident(device) -> dict:
     """Phase 3, the resident kernel against its plain version on the same
     CUDA inputs (tolerance 0 on hist rows < kc and on every plane at every
@@ -365,10 +465,96 @@ def run_main_slice(device, n: int, seams: int):
     return launches, vs_ref
 
 
+def carve_step_loop(cfg, st, k: int, fuse_energy: bool):
+    """k seams off a MapState through ops.carve_step, one step per seam on
+    the compacted planes; hist[j] = seam, committed into a fresh vs every
+    KC seams by engine._commit_hist (the JAX engine's commit). Returns the
+    state after the k seams."""
+    import torch
+    from lqr_tpu_torch.core import engine
+    from lqr_tpu_torch.ops.carve_step import carve_step
+
+    vs = st.vs.clone()
+    b, bias, rig = st.cur_b, st.cur_bias, st.cur_rig
+    hist = torch.empty((engine.KC, cfg.H), dtype=torch.int32,
+                       device=b.device)
+    depth, d0, j = st.depth, st.depth, 0
+    for _ in range(k):
+        s = depth + 1
+        hist[j], b, bias, rig = carve_step(
+            b, bias, rig, st.ref_w - depth,
+            engine.pref_is_left(s, cfg.side_switch_freq), cfg.delta_x,
+            cfg.has_bias, cfg.has_rig, cfg.nrg, fuse_energy=fuse_energy)
+        depth, j = s, j + 1
+        if j == engine.KC:
+            engine._commit_hist(vs, st.ref_w, d0, j, hist)
+            d0, j = depth, 0
+    engine._commit_hist(vs, st.ref_w, d0, j, hist)
+    return st._replace(vs=vs, cur_b=b, cur_bias=bias, cur_rig=rig,
+                       depth=depth)
+
+
+def fused_split(cfg, st, k: int):
+    """carve_step_loop with the energy in torch ops and the DP kernel."""
+    return carve_step_loop(cfg, st, k, False)
+
+
+def fused_inline(cfg, st, k: int):
+    """carve_step_loop with the energy inside the forward kernel."""
+    return carve_step_loop(cfg, st, k, True)
+
+
+def run_fused(device, vs_main, vs_cfg2) -> dict:
+    """Phase 4: the fused seam step through carve_step_loop, 100 seams at
+    N x N in both modes and on cfg2's image with its bias and rigidity
+    planes (energy inline); each visibility map equal to native.carve's
+    (vs_main, and vs_cfg2's first 100 seams), each image to
+    native.materialize, two launches per seam. Returns the launch counts
+    of the 2048^2 run with the energy inline."""
+    import torch
+    from lqr_tpu_torch.core import engine
+    from lqr_tpu_torch.core.state import EngineConfig, init_state
+
+    h, w = CFG2
+    d = cfg2_inputs()
+    runs = [(f"fused {N}x{N} split", make_test_image(N), None, None, False,
+             vs_main),
+            (f"fused {N}x{N} energy inline", make_test_image(N), None, None,
+             True, vs_main),
+            (f"fused cfg2 {w}x{h} bias+rig energy inline", d["img"],
+             d["bias"], d["rig"], True,
+             np.where(vs_cfg2 <= SEAMS, vs_cfg2, 0))]
+    for label, img, bias, rig, fuse, vs_ref in runs:
+        H, W = img.shape[:2]
+        cfg = EngineConfig(H=H, Wb=W, C=3, has_bias=bias is not None,
+                           has_rig=rig is not None)
+        st = init_state(cfg, img, bias=bias, rig=rig, device=device)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = carve_step_loop(cfg, st, SEAMS, fuse)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = _launches()
+        fwd = "dp_energy_forward" if fuse else "dp_forward"
+        _expect_launches(label, launches,
+                         _only(**{fwd: SEAMS, "backtrack_compact": SEAMS}))
+        image = engine.materialize(cfg, out, W - SEAMS, W - SEAMS)
+        _check_carve(label, img, out.vs.cpu().numpy(), image.cpu().numpy(),
+                     vs_ref, W - SEAMS)
+        say("slice", f"{label}: {SEAMS} seams in {secs:.3f} s incl. first "
+            f"calls; vs == native.carve, image == native.materialize; "
+            f"launches {launches}")
+        if fuse and bias is None:
+            main = launches
+    return main
+
+
 def run_cfg2(device) -> dict:
     """Phase 4: cfg2 through the public Carver — masks, rigidity and an
     RGBA aux image; 100 seams, then 300 (200 more on the live map: a
-    128-seam chunk and a 72-seam chunk)."""
+    128-seam chunk and a 72-seam chunk). Returns the launch counts and
+    native.carve's 300-seam map."""
     import lqr_tpu_torch
     from lqr_tpu_torch import native
     from lqr_tpu_torch.ops import dp_cuda
@@ -404,7 +590,7 @@ def run_cfg2(device) -> dict:
         f"get_image + get_aux: {secs:.3f} s incl. first calls; vs == "
         f"native.carve, image and aux == native.materialize at both widths "
         f"(C++ reference took {ref_secs:.1f} s); launches {launches}")
-    return launches
+    return launches, vs_ref
 
 
 def run_cfg1(device, seams: int) -> dict:
@@ -579,6 +765,71 @@ def check_resident_batched(device) -> dict:
         e, _, _ = _batched_case(device, sizes, kcs, 1, RIGIDITY, seed)
         err = max(err, e)
     return {"err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+# The H100 SXM's published peaks (NVIDIA's data sheet, 700 W): device
+# memory rate and float32 rate outside the tensor cores.
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+
+
+def _bound(nbytes: float, ops: float):
+    """(least ms, what bounds it): the larger of the bytes over the memory
+    rate and the operations over the f32 rate."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / F32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _dp_ops(delta_x: int, has_rig: bool) -> int:
+    """Operations of one DP cell: a compare per candidate, the rig term's
+    multiply and add per off-centre candidate, the energy's add."""
+    return (2 * delta_x + 1) + (4 * delta_x if has_rig else 0) + 1
+
+
+def _energy_ops(nrg: int, has_bias: bool) -> int:
+    """Operations of one pixel's energy (core/energy.py): XABS sub, mul,
+    abs; SUMABS and NORM both gradients (sub, mul each), then abs, abs,
+    add, mul or mul, mul, add, sqrt; NULL none; the bias's add."""
+    fam = 3 if nrg == 6 else nrg % 3
+    return (3, 8, 8, 0)[fam] + (1 if has_bias else 0)
+
+
+def kernel_bounds(n: int) -> dict:
+    """Each kernel's bound at the shape phase 3 times it: each input byte
+    read once, each output byte written once, the bytes the chase reads
+    (one per row) rather than all of bp, and the operations its cells
+    need over the widths this run carves."""
+    H = W = n
+    res_h, res_w = CFG2
+    res_kc = 128
+    # the batched entry's timed batch: (h, w, seams) per map, delta_x 2,
+    # bias and rig, padded to 360 x 640 (check_resident_batched)
+    batch = ((360, 640, 32), (300, 600, 0), (200, 500, 20), (360, 620, 25))
+    R, We = 32, n // SHARDS + 2 * 32
+    per_res = _energy_ops(0, True) + _dp_ops(1, True)
+    per_bat = _energy_ops(0, True) + _dp_ops(2, True)
+    return {
+        "dp_forward": _bound(4 * H * W + 4 * W + H * W,
+                             H * W * _dp_ops(1, False)),
+        "dp_forward wide": _bound(4 * 256 * 32768 + 4 * 32768 + 256 * 32768,
+                                  256 * 32768 * _dp_ops(1, False)),
+        "backtrack": _bound(4 * W + H + 4 * H, 2 * W),
+        "carve_resident": _bound(
+            2 * 4 * 4 * res_h * res_w + 4 * res_kc * res_h,
+            per_res * res_h * sum(res_w - j for j in range(res_kc))),
+        "carve_resident_batched": _bound(
+            sum(2 * 4 * 4 * 360 * 640 + 4 * k * h for h, _, k in batch if k),
+            per_bat * sum(h * sum(w - j for j in range(k))
+                          for h, w, k in batch)),
+        "dp_block": _bound(4 * R * We + 2 * 4 * We + R * We,
+                           R * We * _dp_ops(1, False)),
+        "dp_energy_forward": _bound(
+            4 * H * W + 4 * W + H * W,
+            H * W * (_energy_ops(0, False) + _dp_ops(1, False))),
+        "backtrack_compact": _bound(4 * W + H + 2 * 4 * H * W + 4 * H,
+                                    2 * W),
+    }
 
 
 def _launches() -> dict:
@@ -814,6 +1065,7 @@ def main() -> int:
     gpu = smi.stdout.strip().splitlines()[0]
     say("device", f"{name}; nvidia-smi: {gpu}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+    print(gpu, flush=True)
 
     t0 = time.perf_counter()
     _build.build()
@@ -829,9 +1081,13 @@ def main() -> int:
         r = check(device)
         for key in ("err", "ms", "plain_ms"):
             k[key][kname] = r[key]
+    r = check_carve_step(device, N)
+    for key in ("err", "ms", "plain_ms"):
+        k[key].update(r[key])
 
     launches, vs_main = run_main_slice(device, N, SEAMS)
-    launches["carve_resident"] = run_cfg2(device)["carve_resident"]
+    l2, vs_cfg2 = run_cfg2(device)
+    launches["carve_resident"] = l2["carve_resident"]
     run_cfg1(device, SEAMS)
     frames, counts = cfg5_inputs()
     launches["carve_resident_batched"] = run_cfg5(
@@ -840,8 +1096,12 @@ def main() -> int:
     run_cfg4(device, wave)
     run_ragged(device)
     launches["dp_block"] = run_sharded(device, vs_main)["dp_block"]
+    fl = run_fused(device, vs_main, vs_cfg2)
+    for kname in ("dp_energy_forward", "backtrack_compact"):
+        launches[kname] = fl[kname]
 
-    time_routes(device, f"{N}x{N}", (N, N), [engine.extend_map], SEAMS, gpu)
+    time_routes(device, f"{N}x{N}", (N, N),
+                [engine.extend_map, fused_split, fused_inline], SEAMS, gpu)
     routes = [engine._extend_resident, engine._extend_per_seam]
     c2 = cfg2_inputs()
     time_routes(device, "1024x768 with bias and rig", CFG2, routes, SEAMS,
@@ -869,8 +1129,18 @@ def main() -> int:
                 "backtrack": "lqr_tpu/ops/dp_pallas.py:547",
                 "carve_resident": "lqr_tpu/ops/carve_resident.py:178",
                 "carve_resident_batched": "lqr_tpu/ops/carve_resident.py:178",
-                "dp_block": "lqr_tpu/ops/dp_block.py:44"}
-    sources = {"carve_resident_batched": "carve_resident"}
+                "dp_block": "lqr_tpu/ops/dp_block.py:44",
+                "dp_energy_forward": "lqr_tpu/ops/dp_pallas.py:761",
+                "backtrack_compact": "lqr_tpu/ops/dp_pallas.py:925 and "
+                                     "lqr_tpu/ops/dp_pallas.py:1002"}
+    sources = {"carve_resident_batched": "carve_resident",
+               "dp_energy_forward": "carve_step",
+               "backtrack_compact": "carve_step"}
+    bounds = kernel_bounds(N)
+    for kname, (ms_b, by) in bounds.items():
+        say("bounds", f"{kname}: {ms_b * 1e3:.4f} us, bound by {by}")
+    # no single PyTorch call computes a DP scan, a chase or a resident
+    # chunk, so no kernel has a library time
     kernels = [{
         "name": kname, "route": "cuda",
         "source": f"lqr_tpu_torch/csrc/{sources.get(kname, kname)}.cu",
@@ -878,7 +1148,13 @@ def main() -> int:
         "launches": launches[kname],
         "max_abs_err": k["err"][kname],
         "ms": k["ms"][kname], "plain_ms": k["plain_ms"][kname],
+        "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1],
+        "library_ms": None,
     } for kname in dp_cuda.LAUNCHES]
+    for kern in kernels:
+        if kern["launches"] <= 0:
+            raise AssertionError(f"{kern['name']} was not launched on its "
+                                 f"path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -24,7 +24,8 @@ from .config import (EnergyFunc, ResizeOrder, DEFAULT_SIDE_SWITCH_FREQUENCY,
                      MAX_DELTA_X, MAX_ENL_STEP, MIN_ENL_STEP)
 from .errors import (LqrConfigError, LqrImageError, LqrStateError,
                      check_channels)
-from .core.state import EngineConfig, init_state, round_up
+from .core.state import (EngineConfig, init_state, resolve_device,
+                         round_up)
 from .core import engine as eng
 from .i18n import _
 from .oracle import strength
@@ -64,19 +65,6 @@ def place_mask_numpy(mask: np.ndarray, H: int, W: int, x_off: int,
     return field
 
 
-def _resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise LqrConfigError(
-            _("device {d} requested but CUDA is not available; pass "
-              "device=\"cpu\" for the CPU path").format(d=device))
-    if dev.type not in ("cuda", "cpu"):
-        raise LqrConfigError(
-            _("unsupported device {d}; use \"cuda\" or \"cpu\"")
-            .format(d=device))
-    return dev
-
-
 class Carver:
     """A carver over an [H, W, C] uint8 image (C in 1..4)."""
 
@@ -94,7 +82,7 @@ class Carver:
         if rigidity < 0:
             raise LqrConfigError(
                 _("rigidity={v} must be >= 0").format(v=rigidity))
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.delta_x = int(delta_x)
         self.rigidity = float(rigidity)
         self.nrg = EnergyFunc.GRAD_XABS

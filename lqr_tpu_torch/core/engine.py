@@ -60,6 +60,32 @@ def _posmap_from_vs(vs: torch.Tensor, ref_w: int) -> torch.Tensor:
     return torch.argsort(hidden, dim=1, stable=True).to(torch.int32)
 
 
+def total_energy(cur_b, cur_bias, w: int, nrg: int, has_bias: bool,
+                 h=None) -> torch.Tensor:
+    """The DP's energy map [H, Wb] f32 of the compacted planes at width w:
+    energy_from_plane plus the bias where present, +inf at lanes >= w."""
+    e = energy_from_plane(cur_b, w, nrg, h=h)
+    if has_bias:
+        lane = _lane(cur_b.shape[1], cur_b.device)
+        e = torch.where(lane < w, e + cur_bias, torch.inf)
+    return e
+
+
+def compactor(seam: torch.Tensor, w: int, Wb: int):
+    """The roll/select compaction that removes column seam[y] of each row
+    of a [H, Wb] plane at width w: a function of the plane, giving
+    a[y, x + 1] at x >= seam[y], a[y, x] before it, and 0 at x >= w - 1."""
+    lane = _lane(Wb, seam.device)
+    ge = lane >= seam[:, None]
+    keep = lane < (w - 1)
+
+    def compact(a):
+        out = torch.where(ge, torch.roll(a, -1, dims=1), a)
+        return torch.where(keep, out, 0)
+
+    return compact
+
+
 def _carve_once(cfg: EngineConfig, cur_b, cur_bias, cur_rig, posmap,
                 w: int, s: int, find_seam=dp_cuda.find_seam, h=None,
                 rigc_vec=None):
@@ -69,23 +95,11 @@ def _carve_once(cfg: EngineConfig, cur_b, cur_bias, cur_rig, posmap,
     wrapper, or ``dp_cuda.find_seam_plain`` for the resident kernel's plain
     version. h / rigc_vec: the true height and rigidity coefficients of a
     map padded to more rows (ragged batches; see core.dp)."""
-    lane = _lane(cfg.Wb, cur_b.device)
     pl = pref_is_left(s, cfg.side_switch_freq)
-
-    e = energy_from_plane(cur_b, w, cfg.nrg, h=h)
-    if cfg.has_bias:
-        e = torch.where(lane < w, e + cur_bias, torch.inf)
-
+    e = total_energy(cur_b, cur_bias, w, cfg.nrg, cfg.has_bias, h=h)
     seam = find_seam(e, cur_rig, pl, cfg.delta_x, cfg.has_rig, h=h,
                      rigc_vec=rigc_vec)
-
-    ge = lane >= seam[:, None]
-    keep = lane < (w - 1)
-
-    def compact(a):
-        out = torch.where(ge, torch.roll(a, -1, dims=1), a)
-        return torch.where(keep, out, 0)
-
+    compact = compactor(seam, w, cfg.Wb)
     cur_b = compact(cur_b)
     if cfg.has_bias:
         cur_bias = compact(cur_bias)

@@ -8,7 +8,8 @@ height ``H`` is fixed for the lifetime of a map.
 Unlike the JAX state, ``ref_w`` and ``depth`` are host ints: the host
 always knows them, so the seam loop never reads a scalar back from the
 device. The device is the device of the tensors; there is no
-``use_pallas`` switch.
+``use_pallas`` switch: ``init_state`` puts the state on the card unless the
+caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from typing import NamedTuple
 import torch
 
 from ..config import EnergyFunc, DEFAULT_SIDE_SWITCH_FREQUENCY
+from ..errors import LqrConfigError
+from ..i18n import _
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,16 +77,33 @@ def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device: "cuda" (raises LqrConfigError when CUDA
+    is absent) or "cpu", which the caller must ask for."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise LqrConfigError(
+            _("device {d} requested but CUDA is not available; pass "
+              "device=\"cpu\" for the CPU path").format(d=device))
+    if dev.type not in ("cuda", "cpu"):
+        raise LqrConfigError(
+            _("unsupported device {d}; use \"cuda\" or \"cpu\"")
+            .format(d=device))
+    return dev
+
+
 def init_state(cfg: EngineConfig, pixels, bias=None, rig=None, aux=(),
-               device="cpu") -> MapState:
+               device="cuda") -> MapState:
     """Build a fresh MapState from an [H, w, C] uint8 image (w <= Wb).
 
     Inputs are numpy arrays or tensors; bias/rig are f32 [H, w] fields,
     aux a tuple of [H, w, C_i] uint8 images. Everything lands on
-    ``device``.
+    ``device``: the card by default (LqrConfigError without CUDA), the CPU
+    when asked with ``device="cpu"``.
     """
     from .energy import reader_plane   # energy imports this module
 
+    device = resolve_device(device)
     H, Wb = cfg.H, cfg.Wb
     pixels = torch.as_tensor(pixels, dtype=torch.uint8, device=device)
     if pixels.ndim == 2:

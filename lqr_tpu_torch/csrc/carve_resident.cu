@@ -69,6 +69,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "energy.cuh"
 #include "seam_dp.cuh"
 
 namespace {
@@ -78,66 +79,6 @@ constexpr int kDefaultSmem = 48 * 1024;
 constexpr int kMaxDelta = 10;
 constexpr int kMaxItems = 8;        // columns per thread: Wb <= 8192
 constexpr int kUnroll = 4;          // compaction: 32-column chunks per group
-
-enum Family { kXabs = 0, kSumabs = 1, kNorm = 2, kNull = 3 };
-
-// A column's inputs of one row: reader plane to the left and right (edges
-// replicated), above and below (rows replicated), bias and rig.
-struct Px {
-  float l, r, u, d, bias, rig;
-};
-
-// Planes are read and written by this kernel, so no pointer to them is
-// both const and __restrict__: a non-coherent load (ld.global.nc) could
-// return a value from before the compaction of the previous seam.
-__device__ __forceinline__ void load_px(Px& p, const float* b,
-                                        const float* bias, const float* rig,
-                                        int fam, int y, int x, int h, int Wb,
-                                        int w) {
-  const size_t at = (size_t)y * Wb + x;
-  if (fam != kNull) {
-    p.l = b[x > 0 ? at - 1 : at];
-    p.r = b[x < w - 1 ? at + 1 : at];
-    if (fam != kXabs) {
-      p.u = b[(size_t)(y > 0 ? y - 1 : 0) * Wb + x];
-      p.d = b[(size_t)(y < h - 1 ? y + 1 : y) * Wb + x];
-    }
-  }
-  if (bias) p.bias = bias[at];
-  if (rig) p.rig = rig[at];
-}
-
-// energy + bias of one pixel, in the op order of core/energy.py
-__device__ __forceinline__ float energy(const Px& p, int fam, bool has_bias) {
-  float e = 0.0f;
-  if (fam != kNull) {
-    const float gx = __fmul_rn(__fsub_rn(p.r, p.l), 0.5f);
-    if (fam == kXabs) {
-      e = fabsf(gx);
-    } else {
-      const float gy = __fmul_rn(__fsub_rn(p.d, p.u), 0.5f);
-      if (fam == kSumabs)
-        e = __fmul_rn(__fadd_rn(fabsf(gx), fabsf(gy)), 0.5f);
-      else
-        e = __fsqrt_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)));
-    }
-  }
-  return has_bias ? __fadd_rn(e, p.bias) : e;
-}
-
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ int warp_pick(int v, bool left) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const int u = __shfl_xor_sync(0xffffffffu, v, o);
-    v = left ? min(v, u) : max(v, u);
-  }
-  return v;
-}
 
 template <int ITEMS, bool kBatched>
 __global__ void __launch_bounds__(kMaxThreads)

@@ -22,8 +22,9 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 SO = BUILD / "liblqr_kernels.so"
 SOURCES = (CSRC / "dp_forward.cu", CSRC / "backtrack.cu",
-           CSRC / "carve_resident.cu", CSRC / "dp_block.cu")
-HEADERS = (CSRC / "seam_dp.cuh",)
+           CSRC / "carve_resident.cu", CSRC / "dp_block.cu",
+           CSRC / "carve_step.cu")
+HEADERS = (CSRC / "seam_dp.cuh", CSRC / "energy.cuh")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC"]
@@ -105,6 +106,10 @@ def load() -> ctypes.CDLL:
     lib.lqr_carve_resident_batched.argtypes = [p] * 9 + [i] * 7 + [p]
     lib.lqr_dp_block.restype = i
     lib.lqr_dp_block.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p]
+    lib.lqr_dp_energy_forward.restype = i
+    lib.lqr_dp_energy_forward.argtypes = [p] * 4 + [i] * 6 + [p] * 3
+    lib.lqr_backtrack_compact.restype = i
+    lib.lqr_backtrack_compact.argtypes = [p] * 5 + [i] * 4 + [p] * 5
     lib.lqr_cuda_error_string.restype = ctypes.c_char_p
     lib.lqr_cuda_error_string.argtypes = [i]
     _lib = lib

@@ -9,7 +9,7 @@ fallback from a failed launch to the plain version.
 
 ``LAUNCHES`` counts successful kernel launches per kernel, so a run can show
 that its main path went through the kernels; it also counts the kernels of
-``ops/carve_resident.py`` and ``ops/dp_block.py``.
+``ops/carve_resident.py``, ``ops/dp_block.py`` and ``ops/carve_step.py``.
 
 A map too wide for two frontier rows in the card's shared memory runs the
 same DP kernel with its frontier in a global scratch (``frontier_scratch``).
@@ -27,7 +27,8 @@ from ..core.dp import (dp_forward as dp_forward_plain,
 from . import _build
 
 LAUNCHES = {"dp_forward": 0, "backtrack": 0, "carve_resident": 0,
-            "carve_resident_batched": 0, "dp_block": 0}
+            "carve_resident_batched": 0, "dp_block": 0,
+            "dp_energy_forward": 0, "backtrack_compact": 0}
 
 __all__ = ["LAUNCHES", "dp_forward", "backtrack", "find_seam",
            "dp_forward_plain", "backtrack_plain", "find_seam_plain"]

@@ -29,11 +29,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..carver import _resolve_device
 from ..core import dp
 from ..core import engine as eng
 from ..core.energy import reader_plane
-from ..core.state import EngineConfig, MapState, round_up
+from ..core.state import EngineConfig, MapState, resolve_device, round_up
 from ..errors import LqrImageError
 from ..i18n import _
 from ..ops.carve_resident import (batched_resident_ok,
@@ -54,11 +53,14 @@ def rigc_table(heights, delta_x: int) -> np.ndarray:
 
 
 def init_state_batched(cfg: EngineConfig, pixels, widths, bias=None,
-                       rig=None, aux=(), device="cpu") -> MapState:
+                       rig=None, aux=(), device="cuda") -> MapState:
     """pixels: [B, H, Wb, C] u8, padded (lanes >= widths[b] and rows >=
     heights[b] zero); widths: [B]. bias/rig: [B, H, Wb] f32 (present iff
     the config has them); aux: tuple of [B, H, Wb, C_i] u8. Numpy arrays or
-    tensors; everything lands on ``device``."""
+    tensors; everything lands on ``device``: the card by default
+    (LqrConfigError without CUDA), the CPU when asked with
+    ``device="cpu"``."""
+    device = resolve_device(device)
     pixels = torch.as_tensor(pixels, dtype=torch.uint8, device=device)
     B, H, Wb, C = pixels.shape
     assert (H, Wb, C) == (cfg.H, cfg.Wb, cfg.C), (pixels.shape, cfg)
@@ -400,7 +402,7 @@ class BatchCarver:
                 _("column sharding requires equal image heights (pad or "
                   "batch same-height images together)"))
         dev = (mesh.devices[0][0] if mesh is not None
-               else _resolve_device(device))
+               else resolve_device(device))
         st = init_state_batched(self.cfg, buf, widths, bias=bias_f,
                                 rig=rig_f, aux=aux_planes, device=dev)
         self._state = (st if mesh is None

@@ -69,15 +69,17 @@ class Mesh:
 def make_mesh(n_devices: int | None = None, data: int | None = None,
               devices=None) -> Mesh:
     """A (data, cols) mesh of n_devices devices: ``devices`` (a list that
-    may repeat a device), else every CUDA device, else n_devices CPU
-    shards. data: the size of the 'data' axis (default: 1 for up to four
-    devices, else 2)."""
+    may repeat a device, e.g. ``["cpu"] * 4`` for CPU shards), else every
+    CUDA device; without CUDA and without ``devices`` it raises
+    LqrConfigError. data: the size of the 'data' axis (default: 1 for up
+    to four devices, else 2)."""
     if devices is None:
-        if torch.cuda.is_available():
-            devices = [torch.device("cuda", i)
-                       for i in range(torch.cuda.device_count())]
-        else:
-            devices = [torch.device("cpu")] * (n_devices or 1)
+        if not torch.cuda.is_available():
+            raise LqrConfigError(
+                _("make_mesh found no CUDA device; pass devices=[\"cpu\"] * "
+                  "n for CPU shards"))
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
     devs = [torch.device(d) for d in devices]
     n = n_devices or len(devs)
     if not 1 <= n <= len(devs):

@@ -280,3 +280,18 @@ def test_errors():
     with pytest.raises(LqrImageError, match="aux 0 of image 0"):
         tbatch.BatchCarver([random_image(rng, 8, 8, 3)],
                            aux=[[random_image(rng, 8, 9, 1)]], device="cpu")
+
+
+def test_init_state_batched_runs_on_the_card_unless_asked(monkeypatch):
+    """init_state_batched puts the state on CUDA by default: without CUDA it
+    raises and names device="cpu"; asked for the CPU, it builds there."""
+    from lqr_tpu_torch import LqrConfigError
+    from lqr_tpu_torch.core.state import EngineConfig
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = EngineConfig(H=4, Wb=128, C=3)
+    px = np.zeros((2, 4, 128, 3), np.uint8)
+    with pytest.raises(LqrConfigError, match='device="cpu"'):
+        tbatch.init_state_batched(cfg, px, [8, 5])
+    st = tbatch.init_state_batched(cfg, px, [8, 5], device="cpu")
+    assert st.vs.device.type == "cpu" and st.vs.shape == (2, 4, 128)
+    assert st.ref_w.tolist() == [8, 5]

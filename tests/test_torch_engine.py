@@ -53,7 +53,8 @@ def _states(img, Wb, delta_x, rigidity, bias=None):
     rig = (np.full((H, w), np.float32(rigidity), np.float32)
            if rigidity > 0 else None)
     return (jcfg, jst.init_state(jcfg, img, bias=bias, rig=rig),
-            tcfg, tst.init_state(tcfg, img, bias=bias, rig=rig))
+            tcfg, tst.init_state(tcfg, img, bias=bias, rig=rig,
+                                 device="cpu"))
 
 
 @pytest.mark.parametrize("has_bias", [False, True])
@@ -182,3 +183,18 @@ def test_ragged_carve_once_matches_jax(h):
                 np.testing.assert_array_equal(g.numpy(), np.asarray(e),
                                               err_msg=f"{nrg=} {s=}")
             assert (got[0][h:] == got[0][h - 1]).all()
+
+
+def test_init_state_runs_on_the_card_unless_asked(monkeypatch):
+    """init_state puts the state on CUDA by default: without CUDA it raises
+    and names device="cpu"; asked for the CPU, it builds there."""
+    from lqr_tpu_torch import LqrConfigError
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    img = np.zeros((4, 8, 3), np.uint8)
+    cfg = tst.EngineConfig(H=4, Wb=128, C=3)
+    with pytest.raises(LqrConfigError, match='device="cpu"'):
+        tst.init_state(cfg, img)
+    with pytest.raises(LqrConfigError, match="CUDA is not available"):
+        tst.init_state(cfg, img, device="cuda:0")
+    st = tst.init_state(cfg, img, device="cpu")
+    assert st.vs.device.type == "cpu" and st.cur_b.shape == (4, 128)

@@ -23,7 +23,7 @@ assert c.get_image().shape == (12, 33, 3)
 from lqr_tpu_torch.parallel import make_mesh
 b = lqr_tpu_torch.BatchCarver([img, img[:9]], device="cpu")
 b.carve([2, 3])
-s = lqr_tpu_torch.BatchCarver([img], mesh=make_mesh(2, data=1))
+s = lqr_tpu_torch.BatchCarver([img], mesh=make_mesh(devices=["cpu"] * 2, data=1))
 s.carve(2)
 assert (s.state.vs == b.state.vs[:1]).all()
 leaked = sorted(m for m in sys.modules

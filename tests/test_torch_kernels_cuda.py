@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version on the same CUDA inputs, bit-exact (tolerance 0), a refused launch
-that must raise, and the Carver's, BatchCarver's and the column-sharded
-resize's CUDA paths against the C++ reference.
+that must raise, and the Carver's, BatchCarver's, the column-sharded
+resize's and the fused seam step's CUDA paths against the C++ reference.
 
 Marked ``cuda``; every test skips where CUDA is unavailable. On a machine
 with an NVIDIA GPU (no jax needed, so skip tests/conftest.py):
@@ -265,7 +265,8 @@ def test_carver_cuda_matches_native(cuda):
     # 192 x 256 takes the resident route: one launch for the 26 seams
     launched = {k: dp_cuda.LAUNCHES[k] - before[k] for k in before}
     assert launched == {"dp_forward": 0, "backtrack": 0, "carve_resident": 1,
-                        "carve_resident_batched": 0, "dp_block": 0}
+                        "carve_resident_batched": 0, "dp_block": 0,
+                        "dp_energy_forward": 0, "backtrack_compact": 0}
     c.resize(270, 192)
     np.testing.assert_array_equal(c.get_image(),
                                   native.materialize(img, vs, 270))
@@ -347,7 +348,8 @@ def test_extend_map_cuda_matches_cpu(cuda, nrg, dx, rig):
     cfg = EngineConfig(H=64, Wb=256, C=3, delta_x=dx, nrg=nrg,
                        has_rig=rig > 0)
     field = np.full((64, 200), np.float32(rig)) if rig else None
-    cpu = engine.extend_map(cfg, init_state(cfg, img, rig=field), 30)
+    cpu = engine.extend_map(cfg, init_state(cfg, img, rig=field,
+                                              device="cpu"), 30)
     # both routes on the card: the per-seam kernels and the resident one
     for route in (engine._extend_per_seam, engine._extend_resident):
         got = route(cfg, init_state(cfg, img, rig=field, device=cuda), 30)
@@ -358,3 +360,147 @@ def test_extend_map_cuda_matches_cpu(cuda, nrg, dx, rig):
             np.testing.assert_array_equal(
                 engine.materialize(cfg, got, w, 256).cpu().numpy(),
                 engine.materialize(cfg, cpu, w, 256).numpy())
+
+
+def _step_planes(seed, H, W, Wb, device):
+    """Reader plane of few levels (ties on purpose), a bias of eighths and a
+    rigidity field, zero past W."""
+    rng = np.random.default_rng(seed)
+    planes = np.zeros((3, H, Wb), np.float32)
+    planes[0, :, :W] = rng.integers(0, 6, (H, W)) / np.float32(5)
+    planes[1, :, :W] = np.round(rng.standard_normal((H, W)) * 4) / 8
+    planes[2, :, :W] = np.abs(np.round(rng.standard_normal((H, W)) * 8))
+    return tuple(torch.from_numpy(planes).to(device))
+
+
+_STEP_SHAPES = [
+    # H, W, Wb, w, delta_x, nrg, has_bias, has_rig
+    (2048, 2048, 2048, 2048, 1, 0, False, False),   # the main path's shape
+    (2048, 2048, 2048, 1990, 2, 0, True, True),
+    (256, 1000, 1024, 980, 2, 2, True, True),
+    (40, 250, 256, 231, 1, 6, True, True),
+    (64, 300, 384, 300, 3, 1, False, True),
+    (16, 1, 128, 1, 0, 4, False, False),
+]
+
+
+@pytest.mark.parametrize("H,W,Wb,w,dx,nrg,has_bias,has_rig", _STEP_SHAPES)
+def test_dp_energy_forward_matches_plain(cuda, H, W, Wb, w, dx, nrg,
+                                         has_bias, has_rig):
+    from lqr_tpu_torch.ops import carve_step
+    b, bias, rig = _step_planes(H + nrg, H, W, Wb, cuda)
+    for pref in (True, False):
+        args = (b, bias if has_bias else None, rig if has_rig else None, w,
+                pref, dx, has_bias, has_rig, nrg)
+        before = dp_cuda.LAUNCHES["dp_energy_forward"]
+        M_k, bp_k = carve_step.dp_energy_forward(*args)
+        M_p, bp_p = carve_step.dp_energy_forward_plain(*args)
+        torch.cuda.synchronize()
+        assert dp_cuda.LAUNCHES["dp_energy_forward"] == before + 1
+        assert torch.equal(M_k, M_p) and torch.equal(bp_k, bp_p), pref
+
+
+@pytest.mark.parametrize("H,W,Wb,w,dx,nrg,has_bias,has_rig", _STEP_SHAPES)
+def test_backtrack_compact_matches_plain(cuda, H, W, Wb, w, dx, nrg,
+                                         has_bias, has_rig):
+    from lqr_tpu_torch.ops import carve_step
+    b, bias, rig = _step_planes(H + dx, H, W, Wb, cuda)
+    planes = (b, bias if has_bias else None, rig if has_rig else None)
+    for pref in (True, False):
+        M, bp = carve_step.dp_energy_forward_plain(*planes, w, pref, dx,
+                                                   has_bias, has_rig, nrg)
+        before = dp_cuda.LAUNCHES["backtrack_compact"]
+        got = carve_step.backtrack_compact(M, bp, *planes, w, pref, has_bias,
+                                           has_rig)
+        want = carve_step.backtrack_compact_plain(M, bp, *planes, w, pref,
+                                                  has_bias, has_rig)
+        torch.cuda.synchronize()
+        assert dp_cuda.LAUNCHES["backtrack_compact"] == before + 1
+        assert torch.equal(got[0], want[0]), pref
+        for g, e, p in zip(got[1:], want[1:], planes):
+            if p is None:
+                assert g is None and e is None      # an absent plane
+            else:
+                assert torch.equal(g, e) and g is not p, pref
+
+
+def test_carve_step_at_max_width(cuda):
+    """The widest map fused_ok admits: two frontier rows fill the opt-in
+    shared memory, and both modes equal the plain step."""
+    from lqr_tpu_torch.ops import carve_step
+    Wb = carve_step.MAX_WB
+    assert carve_step.fused_ok(8, Wb) and not carve_step.fused_ok(8, Wb + 1)
+    b, bias, rig = _step_planes(4, 8, Wb - 3, Wb, cuda)
+    args = (b, bias, rig, Wb - 3, True, 1, True, True, 0)
+    want = carve_step.carve_step_plain(*args)
+    for fuse in (False, True):
+        got = carve_step.carve_step(*args, fuse_energy=fuse)
+        torch.cuda.synchronize()
+        for g, e in zip(got, want):
+            assert torch.equal(g, e), fuse
+
+
+def test_carve_step_refused_launches_raise(cuda):
+    """Bad arguments never launch: the wrapper refuses a map past fused_ok,
+    and the launchers refuse delta_x = 11, a frontier beyond the shared
+    memory and a plane without its output, when called past the wrapper."""
+    from lqr_tpu_torch.ops import _build, carve_step
+    lib = _build.load()
+    before = dict(dp_cuda.LAUNCHES)
+    wide = torch.zeros((2, carve_step.MAX_WB + 1), device=cuda)
+    with pytest.raises(ValueError, match="fused_ok"):
+        carve_step.carve_step(wide, None, None, 10, True, 1, False, False, 0,
+                              fuse_energy=True)
+    stream = torch.cuda.current_stream().cuda_stream
+    b = torch.zeros((2, 30000), device=cuda)
+    m = torch.empty(30000, device=cuda)
+    bp = torch.empty((2, 30000), dtype=torch.int8, device=cuda)
+    rigc = torch.zeros(12, device=cuda)
+    for dx, Wb in ((11, 256), (1, 30000)):      # 2 * 30000 * 4 B > 227 KB
+        rc = lib.lqr_dp_energy_forward(b.data_ptr(), None, None,
+                                       rigc.data_ptr(), 1, dx, 0, 2, Wb, Wb,
+                                       m.data_ptr(), bp.data_ptr(), stream)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            _build.check(lib, rc, "lqr_dp_energy_forward")
+    seam = torch.empty(2, dtype=torch.int32, device=cuda)
+    rc = lib.lqr_backtrack_compact(m.data_ptr(), bp.data_ptr(), b.data_ptr(),
+                                   b.data_ptr(), None, 1, 2, 256, 256,
+                                   seam.data_ptr(), m.data_ptr(), None, None,
+                                   stream)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _build.check(lib, rc, "lqr_backtrack_compact")
+    assert dp_cuda.LAUNCHES == before
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+def test_carve_step_loop_cuda_matches_native(cuda, fuse):
+    """chip_smoke.py's carve_step loop on the card, 150 seams of a 96 x 300
+    image with bias and rigidity (a 128-seam commit and a partial one),
+    against the C++ reference; two kernel launches per seam."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    rng = np.random.default_rng(12)
+    h, w, k = 96, 300, 150
+    img = _image(6, h, w)
+    bias = np.round(rng.standard_normal((h, w)) * 4).astype(np.float32) / 8
+    rig = np.abs(rng.standard_normal((h, w))).astype(np.float32)
+    cfg = EngineConfig(H=h, Wb=384, C=3, delta_x=2, has_bias=True,
+                       has_rig=True)
+    st = init_state(cfg, img, bias=bias, rig=rig, device=cuda)
+    before = dict(dp_cuda.LAUNCHES)
+    got = smoke.carve_step_loop(cfg, st, k, fuse)
+    torch.cuda.synchronize()
+    launched = {n: dp_cuda.LAUNCHES[n] - before[n] for n in before}
+    fwd = "dp_energy_forward" if fuse else "dp_forward"
+    assert launched == {n: k if n in (fwd, "backtrack_compact") else 0
+                        for n in before}
+    vs = native.carve(img, k, bias=bias, rig=rig, delta_x=2)
+    np.testing.assert_array_equal(got.vs.cpu().numpy()[:, :w], vs)
+    np.testing.assert_array_equal(
+        engine.materialize(cfg, got, w - k, 384).cpu().numpy()[:, :w - k],
+        native.materialize(img, vs, w - k))

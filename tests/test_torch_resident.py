@@ -43,7 +43,8 @@ def _pair(img, bias, rig, Wb, **kw):
     jcfg = jst.EngineConfig(use_pallas=False, **kw)
     tcfg = tst.EngineConfig(**kw)
     return (jcfg, jst.init_state(jcfg, img, bias=bias, rig=rig),
-            tcfg, tst.init_state(tcfg, img, bias=bias, rig=rig))
+            tcfg, tst.init_state(tcfg, img, bias=bias, rig=rig,
+                                 device="cpu"))
 
 
 def _port_chunk(t, w0, d0, kc, dx, has_bias, has_rig, nrg):

@@ -37,6 +37,12 @@ def _eight_devices():
         pytest.skip("the JAX side needs the 8-device CPU mesh")
 
 
+def _cpu_mesh(n, data=None):
+    """A mesh of n CPU shards (make_mesh takes the CUDA devices unless
+    given others)."""
+    return tshard.make_mesh(devices=["cpu"] * n, data=data)
+
+
 def _energy(seed, H, Wb, ties=True):
     rng = np.random.default_rng(seed)
     e = rng.random((H, Wb), dtype=np.float32)
@@ -104,7 +110,7 @@ def test_find_seam_sharded_matches_jax(n_shards, dx, has_rig, pref):
     e, rig = _energy(5, 16, 1024)
     want_sharded, want = _jax_seams(dx, has_rig, pref)
     np.testing.assert_array_equal(want_sharded, want)
-    mesh = tshard.make_mesh(n_shards, data=1)
+    mesh = _cpu_mesh(n_shards, data=1)
     assert mesh.shape == {"data": 1, "cols": n_shards}
     got = tshard.find_seam_sharded(mesh, torch.from_numpy(e),
                                    torch.from_numpy(rig) if has_rig else None,
@@ -135,7 +141,7 @@ def test_data_parallel_matches_jax(n_data):
     kw = dict(biases=biases, rigidity=10.0)
     j = jbatch.BatchCarver(imgs, mesh=jshard.make_mesh(8, data=8), **kw)
     j.carve(5)
-    t = tbatch.BatchCarver(imgs, mesh=tshard.make_mesh(n_data, data=n_data),
+    t = tbatch.BatchCarver(imgs, mesh=_cpu_mesh(n_data, data=n_data),
                            device="cpu", **kw)
     assert not t.col_sharded and len(t._state.shards) == n_data
     t.carve(5)
@@ -165,7 +171,7 @@ def test_column_sharded_resize_matches_jax(n_data, n_cols):
     column-sharded maps on its 2 x 4 mesh, for 1, 2, 4 and 8 shards."""
     imgs, kw = _masked_batch(31, 2, 16, 256)
     want_vs, want_b, want_imgs = _jax_col_sharded()
-    mesh = tshard.make_mesh(n_data * n_cols, data=n_data)
+    mesh = _cpu_mesh(n_data * n_cols, data=n_data)
     t = tbatch.BatchCarver(imgs, mesh=mesh, device="cpu", **kw)
     assert t.col_sharded == (n_cols > 1)
     t.carve(12)
@@ -184,7 +190,7 @@ def test_column_sharded_per_image_counts_and_nrg(nrg):
     port."""
     imgs, kw = _masked_batch(41, 2, 8, 256)
     n = np.array([7, 3])
-    shd = tbatch.BatchCarver(imgs, mesh=tshard.make_mesh(4, data=1),
+    shd = tbatch.BatchCarver(imgs, mesh=_cpu_mesh(4, data=1),
                              device="cpu", nrg=nrg, delta_x=2, **kw)
     shd.carve(n)
     solo = tbatch.BatchCarver(imgs, device="cpu", nrg=nrg, delta_x=2, **kw)
@@ -206,7 +212,7 @@ def test_sharded_seam_step_bias_rig():
         jnp.bool_(True), delta_x=2, bias=jnp.asarray(bias),
         rig=jnp.asarray(rig), has_bias=True, has_rig=True)
     got = tshard.sharded_seam_step(
-        tshard.make_mesh(4, data=1), torch.from_numpy(imgs), widths, True,
+        _cpu_mesh(4, data=1), torch.from_numpy(imgs), widths, True,
         delta_x=2, bias=torch.from_numpy(bias), rig=torch.from_numpy(rig),
         has_bias=True, has_rig=True)
     for g, e in zip(got, want):
@@ -215,31 +221,44 @@ def test_sharded_seam_step_bias_rig():
 
 def test_ragged_with_cols_and_uneven_batch_raise():
     rng = np.random.default_rng(3)
-    mesh = tshard.make_mesh(8, data=2)
+    mesh = _cpu_mesh(8, data=2)
     with pytest.raises(LqrImageError, match="equal image heights"):
         tbatch.BatchCarver([random_image(rng, 16, 256, 3),
                             random_image(rng, 12, 256, 3)], mesh=mesh,
                            device="cpu")
     with pytest.raises(LqrImageError, match="shard evenly"):
         tbatch.BatchCarver([random_image(rng, 24, 32, 3)] * 3,
-                           mesh=tshard.make_mesh(8, data=8), device="cpu")
+                           mesh=_cpu_mesh(8, data=8), device="cpu")
     with pytest.raises(LqrImageError, match="shard evenly"):
-        tshard.find_seam_sharded(tshard.make_mesh(3, data=1),
+        tshard.find_seam_sharded(_cpu_mesh(3, data=1),
                                  torch.zeros((4, 128)), None, True, 1, False)
 
 
 def test_mesh():
-    mesh = tshard.make_mesh(8)
+    mesh = _cpu_mesh(8)
     assert mesh.shape == {"data": 2, "cols": 4}
-    assert tshard.make_mesh(4).shape == {"data": 1, "cols": 4}
+    assert _cpu_mesh(4).shape == {"data": 1, "cols": 4}
     cpu = torch.device("cpu")
     mesh = tshard.make_mesh(devices=[cpu] * 4, data=2)
     assert mesh.devices == ((cpu, cpu), (cpu, cpu))
     from lqr_tpu_torch import LqrConfigError
     with pytest.raises(LqrConfigError):
-        tshard.make_mesh(6, data=4)
+        _cpu_mesh(6, data=4)
     with pytest.raises(LqrConfigError):
         tshard.make_mesh(5, devices=[cpu] * 4)
     # the exact-cone rule picks the same rows per block as JAX's
     for H, dx, Wl in ((16, 1, 64), (2048, 1, 512), (30, 2, 64), (7, 3, 8)):
         assert tshard._block_rows(H, dx, Wl) == jshard._block_rows(H, dx, Wl)
+
+
+def test_make_mesh_needs_cuda_or_devices(monkeypatch):
+    """Without devices, make_mesh takes every CUDA device; with none it
+    raises instead of building CPU shards, which come only when asked."""
+    from lqr_tpu_torch import LqrConfigError
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(LqrConfigError, match=r'devices=\["cpu"\]'):
+        tshard.make_mesh()
+    with pytest.raises(LqrConfigError, match="no CUDA device"):
+        tshard.make_mesh(4, data=1)
+    mesh = tshard.make_mesh(devices=["cpu"] * 2)
+    assert mesh.shape == {"data": 1, "cols": 2}

@@ -1,0 +1,68 @@
+#!/usr/bin/env python3
+"""The end-to-end timings of chip_smoke.py phase 5 for the checkout at ROOT.
+
+    python3 tools/ab_timing.py ROOT LABEL
+
+Imports ROOT's chip_smoke.py and ROOT's lqr_tpu_torch, builds its kernels,
+and times what phase 5 times before the fused step existed: 100 seams at
+2048x2048 through extend_map, both extend_map routes at 1024x768 with masks
+and at 512x384, BatchCarver.carve on cfg5 and one cfg4 wave, and the
+column-sharded 2048x2048. Each line is prefixed with LABEL. To compare two
+commits on one card, unpack the other with ``git archive`` and run both in
+turns in one call, one process each: parent, change, change, parent.
+"""
+
+from __future__ import annotations
+
+import pathlib
+import sys
+
+
+def main(argv: list[str]) -> int:
+    root, label = pathlib.Path(argv[0]).resolve(), argv[1]
+    sys.path.insert(0, str(root))
+    import torch
+
+    import chip_smoke as smoke
+    from lqr_tpu_torch.core import engine
+    from lqr_tpu_torch.ops import _build
+    from lqr_tpu_torch.parallel import BatchCarver, make_mesh
+
+    if not torch.cuda.is_available():
+        print("ab_timing: needs a CUDA device", file=sys.stderr)
+        return 1
+    _build.build()
+    _build.load()
+    smoke.say = lambda phase, msg: print(f"[{label}] {msg}", flush=True)
+    dev = torch.device("cuda", 0)
+    gpu = torch.cuda.get_device_name(0)
+    N, seams = smoke.N, smoke.SEAMS
+    smoke.time_routes(dev, f"{N}x{N}", (N, N), [engine.extend_map], seams,
+                      gpu)
+    routes = [engine._extend_resident, engine._extend_per_seam]
+    c2 = smoke.cfg2_inputs()
+    smoke.time_routes(dev, "1024x768 with bias and rig", smoke.CFG2, routes,
+                      seams, gpu, c2["bias"], c2["rig"])
+    smoke.time_routes(dev, "512x384", smoke.CFG1, routes, seams, gpu)
+    frames, counts = smoke.cfg5_inputs()
+    smoke._median_runs("cfg5 BatchCarver.carve",
+                       lambda: BatchCarver(frames, device=dev),
+                       lambda bc: bc.carve(counts), int(counts.sum()),
+                       "img_seams", gpu)
+    del frames
+    wave = smoke.cfg4_inputs()
+    smoke._median_runs("cfg4 wave BatchCarver.carve",
+                       lambda: BatchCarver(wave, device=dev),
+                       lambda bc: bc.carve(smoke.CFG4[3]),
+                       len(wave) * smoke.CFG4[3], "img_seams", gpu)
+    del wave
+    img = smoke.make_test_image(N)
+    mesh = make_mesh(devices=[dev] * smoke.SHARDS, data=1)
+    smoke._median_runs(f"column-sharded {N}x{N}",
+                       lambda: BatchCarver([img], mesh=mesh),
+                       lambda bc: bc.carve(seams), seams, "seam", gpu)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
