@@ -11,9 +11,13 @@ Phases, one line each (any failure exits non-zero):
 3. kernels — each kernel against its plain PyTorch version on the same
              CUDA inputs, bit-exact (tolerance 0). DP and backtrack:
              2048x2048 at delta_x=1 with both side preferences, delta_x=2
-             with rigidity, a Wb=384 shape, and Wb=32768 (the DP's
-             frontier in global scratch); a bad argument (delta_x=64) must
-             raise. The resident kernel: 1024x768 with bias and rigidity
+             with rigidity, a Wb=384 shape, the strip kernel's edges
+             (EDGE_CASES: Wb % 4 != 0, Wb < 32, Wb = 1, H = 1, H - 1 not a
+             multiple of K, delta_x 0, 3, 7 and 10, energies full of ties,
+             rigidity, unaligned planes), a ragged h with a per-image
+             rigc, and Wb=32768 (the DP's frontier in global scratch); a
+             bad argument (delta_x=64, a halo narrower than delta_x * K)
+             must raise. The resident kernel: 1024x768 with bias and rigidity
              under GRAD_XABS and GRAD_NORM (128 seams), delta_x=2 with
              rigidity, 512x384 without masks, and a partial chunk (72 seams
              at depth 128). Its batched entry, with bias and rigidity, at
@@ -176,34 +180,89 @@ def _cuda_ms(fn, reps: int, warm: bool = True) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+# The strip DP kernel's and the windowed chase's edges: (H, W, Wb,
+# delta_x, has_rig, energy) with energy "ties" (eighths), "flat" (every
+# cell equal) or "offset" (the planes 4 bytes past a 16-byte boundary);
+# rig is nonzero past W, where E is +inf and the rig term picks bp
+EDGE_CASES = [
+    (64, 1021, 1021, 1, False, "ties"),     # Wb % 4 != 0, strips uneven
+    (50, 999, 1003, 2, True, "ties"),
+    (40, 20, 20, 1, False, "ties"),         # Wb < 32
+    (30, 1, 1, 1, False, "ties"),           # Wb = 1
+    (30, 1, 1, 0, True, "ties"),
+    (1, 500, 512, 1, False, "ties"),        # H = 1
+    (333, 700, 700, 1, False, "ties"),      # H - 1 not a multiple of K
+    (100, 300, 300, 0, True, "ties"),       # delta_x = 0
+    (100, 640, 640, 3, True, "ties"),       # delta_x = 3
+    (60, 500, 512, 7, True, "ties"),        # run-time delta_x
+    (40, 300, 300, 10, False, "ties"),
+    (80, 256, 256, 2, False, "flat"),       # every candidate ties
+    (90, 2000, 2048, 1, True, "flat"),
+    (70, 600, 640, 1, True, "offset"),      # unaligned planes
+]
+
+
+def _edge_case(H, W, Wb, dx, has_rig, energy, device):
+    """One of EDGE_CASES' inputs on the device."""
+    import torch
+    rng = np.random.default_rng(H * 31 + Wb + dx)
+    e = np.full((H, Wb), np.inf, np.float32)
+    e[:, :W] = (0.5 if energy == "flat" else
+                np.round(rng.random((H, W), dtype=np.float32) * 8) / 8)
+    rig = (np.round(np.abs(rng.standard_normal((H, Wb))) * 4) / 4
+           ).astype(np.float32) if has_rig else None
+    if energy != "offset":
+        return (torch.from_numpy(e).to(device),
+                None if rig is None else torch.from_numpy(rig).to(device))
+
+    def offset(a):
+        buf = torch.empty(a.size + 1, dtype=torch.float32, device=device)
+        buf[1:] = torch.from_numpy(a.ravel()).to(device)
+        return buf[1:].view(a.shape)
+    return offset(e), None if rig is None else offset(rig)
+
+
 def check_kernels(device, n: int) -> dict:
     """Phase 3: kernels vs plain versions; returns per-kernel errors and
     times."""
     import torch
     from lqr_tpu_torch.core.energy import energy_from_plane, reader_plane
     from lqr_tpu_torch.ops import _build, dp_cuda
+    from lqr_tpu_torch.parallel.batch import rigc_table
 
     img = torch.from_numpy(make_test_image(n)).to(device)
     e_main = energy_from_plane(reader_plane(img, 0), n, 0)
-    cases = [("main", e_main, None, 1, pref) for pref in (True, False)]
+    cases = [("main", e_main, None, 1, pref, None) for pref in (True, False)]
     e, rig = _random_case(256, 1000, 1024, 2, True, 5, device)
-    cases += [("delta2_rig", e, rig, 2, pref) for pref in (True, False)]
+    cases += [("delta2_rig", e, rig, 2, pref, None) for pref in (True, False)]
     e, rig = _random_case(300, 380, 384, 1, False, 6, device)
-    cases += [("wb384", e, None, 1, True)]
+    cases += [("wb384", e, None, 1, True, None)]
+    for H, W, Wb, dx, has_rig, energy in EDGE_CASES:
+        e, rig = _edge_case(H, W, Wb, dx, has_rig, energy, device)
+        cases += [(f"edge {energy}", e, rig, dx, pref, None)
+                  for pref in (True, False)]
+    e, rig = _random_case(40, 200, 256, 2, True, 17, device)
+    rigc = torch.from_numpy(rigc_table([17], 2)[0]).to(device)
+    cases += [("ragged h=17", e, rig, 2, pref, (17, rigc))
+              for pref in (True, False)]
 
     err = {"dp_forward": 0.0, "backtrack": 0.0}
-    for name, e, rig, dx, pref in cases:
+    for name, e, rig, dx, pref, ragged in cases:
         has_rig = rig is not None
-        M_k, bp_k = dp_cuda.dp_forward(e, rig, pref, dx, has_rig)
-        M_p, bp_p = dp_cuda.dp_forward_plain(e, rig, pref, dx, has_rig)
+        h, rv = ragged or (None, None)
+        M_k, bp_k = dp_cuda.dp_forward(e, rig, pref, dx, has_rig, h=h,
+                                       rigc_vec=rv)
+        M_p, bp_p = dp_cuda.dp_forward_plain(e, rig, pref, dx, has_rig, h=h,
+                                             rigc_vec=rv)
         seam_k = dp_cuda.backtrack(M_p, bp_p, pref)
         seam_p = dp_cuda.backtrack_plain(M_p, bp_p, pref)
         torch.cuda.synchronize()
         e_dp = max(_max_err(M_k, M_p), _max_err(bp_k, bp_p))
         e_bt = _max_err(seam_k, seam_p)
         say("kernels", f"{name} H={e.shape[0]} Wb={e.shape[1]} delta_x={dx} "
-            f"rig={has_rig} pref_left={pref}: dp_forward max_abs_err={e_dp} "
-            f"backtrack max_abs_err={e_bt} (tolerance 0)")
+            f"rig={has_rig} pref_left={pref} geometry "
+            f"{dp_cuda.strip_geometry(e.shape[1], dx)}: dp_forward "
+            f"max_abs_err={e_dp} backtrack max_abs_err={e_bt} (tolerance 0)")
         if e_dp != 0.0 or e_bt != 0.0:
             raise AssertionError(f"kernel differs from plain on {name}")
         err["dp_forward"] = max(err["dp_forward"], e_dp)
@@ -225,21 +284,25 @@ def check_kernels(device, n: int) -> dict:
         if e_dp != 0.0:
             raise AssertionError("wide dp_forward differs from plain")
 
-    # a bad argument never launches: the launcher refuses delta_x = 64
+    # a bad argument never launches: the launcher refuses delta_x = 64 and
+    # a halo narrower than delta_x * K
     lib = _build.load()
     before = dict(dp_cuda.LAUNCHES)
     m = torch.empty(256, device=device)
     bp = torch.empty((2, 256), dtype=torch.int8, device=device)
     rigc = torch.zeros(65, device=device)
-    rc = lib.lqr_dp_forward(e_main.data_ptr(), None, rigc.data_ptr(), 1, 64,
-                            2, 256, 2, m.data_ptr(), bp.data_ptr(), None,
-                            torch.cuda.current_stream().cuda_stream)
-    try:
-        _build.check(lib, rc, "lqr_dp_forward")
-    except RuntimeError as exc:
-        say("kernels", f"delta_x=64 refused as it must: {exc}")
-    else:
-        raise AssertionError("a delta_x=64 launch did not raise")
+    for label, dx, geo in (("delta_x=64", 64, dp_cuda.strip_geometry(256, 1)),
+                           ("G < delta_x * K", 2, (1, 1, 160, 48, 25))):
+        rc = lib.lqr_dp_forward(e_main.data_ptr(), None, rigc.data_ptr(), 1,
+                                dx, 2, 256, 2, *geo, m.data_ptr(),
+                                bp.data_ptr(), None,
+                                torch.cuda.current_stream().cuda_stream)
+        try:
+            _build.check(lib, rc, "lqr_dp_forward")
+        except RuntimeError as exc:
+            say("kernels", f"{label} refused as it must: {exc}")
+        else:
+            raise AssertionError(f"a {label} launch did not raise")
     torch.cuda.synchronize()
     if dp_cuda.LAUNCHES != before:
         raise AssertionError("a refused launch was counted")
@@ -263,9 +326,10 @@ def check_kernels(device, n: int) -> dict:
             lambda: dp_cuda.dp_forward_plain(e_w, None, True, 1, False), 2),
     }
     for k in ms:
-        shape = "256x32768" if k.endswith("wide") else f"{n}x{n}"
-        say("kernels", f"{k} at {shape}: kernel {ms[k]:.4f} ms, plain "
-            f"{plain_ms[k]:.4f} ms")
+        rows, shape = (256, "256x32768") if k.endswith("wide") else (
+            n, f"{n}x{n}")
+        say("kernels", f"{k} at {shape}: kernel {ms[k]:.4f} ms "
+            f"({ms[k] * 1e3 / rows:.4f} us/row), plain {plain_ms[k]:.4f} ms")
     return {"err": err, "ms": ms, "plain_ms": plain_ms}
 
 

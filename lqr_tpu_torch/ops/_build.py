@@ -95,7 +95,7 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.lqr_dp_forward.restype = i
-    lib.lqr_dp_forward.argtypes = [p, p, p, i, i, i, i, i, p, p, p, p]
+    lib.lqr_dp_forward.argtypes = [p, p, p] + [i] * 10 + [p] * 4
     lib.lqr_smem_optin.restype = i
     lib.lqr_smem_optin.argtypes = []
     lib.lqr_backtrack.restype = i

@@ -11,8 +11,11 @@ fallback from a failed launch to the plain version.
 that its main path went through the kernels; it also counts the kernels of
 ``ops/carve_resident.py``, ``ops/dp_block.py`` and ``ops/carve_step.py``.
 
-A map too wide for two frontier rows in the card's shared memory runs the
-same DP kernel with its frontier in a global scratch (``frontier_scratch``).
+The DP kernel runs warp strips with K-row halos over a thread-block cluster
+(``csrc/dp_forward.cu``); ``strip_geometry`` picks its blocks, warps, strip
+width, halo and K. A map whose frontier pair and row rings do not fit the
+card's shared memory together keeps the frontier in a global scratch
+(``frontier_scratch``).
 """
 
 from __future__ import annotations
@@ -63,12 +66,69 @@ def smem_optin(device: torch.device) -> int:
     return n
 
 
+# csrc/dp_forward.cu: a warp's window of columns, its row ring, the most
+# warps a block runs, the most blocks in its cluster, and the fewest warps
+# whose rings must fit beside a shared-memory frontier
+WINDOW = 256
+WARP_RING = 16 * 1024
+MAX_WARPS = 16
+MAX_CTAS = 8
+MIN_WARPS_SMEM_FRONTIER = 4
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _front_bytes(W: int) -> int:
+    return 2 * _cdiv(W, 4) * 4 * 4
+
+
 def frontier_scratch(W: int, device: torch.device):
-    """None when two frontier rows of W f32 fit the device's shared memory;
-    else a [2 * W] f32 scratch for the kernel to hold them in."""
-    if 2 * W * 4 <= smem_optin(device):
+    """None when the DP kernel's frontier pair fits the device's shared
+    memory beside the row rings of MIN_WARPS_SMEM_FRONTIER warps; else a
+    [2 * round_up(W, 4)] f32 scratch for the kernel to hold it in."""
+    if (_front_bytes(W) + MIN_WARPS_SMEM_FRONTIER * WARP_RING
+            <= smem_optin(device)):
         return None
-    return torch.empty(2 * W, dtype=torch.float32, device=device)
+    return torch.empty(_front_bytes(W) // 4, dtype=torch.float32,
+                       device=device)
+
+
+def warp_cap(W: int, device: torch.device, scratch) -> int:
+    """The most warps a block of the DP kernel runs: their row rings and a
+    shared-memory frontier (scratch None) fit the device's shared memory."""
+    room = smem_optin(device) - (_front_bytes(W) if scratch is None else 0)
+    return min(MAX_WARPS, room // WARP_RING)
+
+
+def strip_geometry(Wb: int, delta_x: int, max_warps: int = MAX_WARPS):
+    """(ctas, warps, S, G, K) of the DP kernel for a map of Wb columns:
+    strips of S kept columns (a multiple of 16) with G = (WINDOW - S) / 2
+    halo columns on each side, G >= 8 * delta_x, exchanged every K = G //
+    delta_x rows (64 at delta_x = 0), over a thread-block cluster of ctas
+    blocks of warps warps each. A map of up to four strips runs in one
+    block; a wider one in strips of at most 128 columns (K = 64 at
+    delta_x = 1: the exchanges, not the halos, cost the most), four warps
+    a block (one on each of the SM's schedulers) on up to 8 blocks; wider
+    still, 8 blocks of up to max_warps warps (a multiple of 4), each warp
+    running several strips."""
+    smax = WINDOW - 16 * delta_x
+    need = _cdiv(Wb, smax)
+    if need <= 4:
+        ctas, warps = 1, min(need, max_warps)
+    elif _cdiv(Wb, min(128, smax)) <= 4 * MAX_CTAS:
+        ctas, warps = _cdiv(_cdiv(Wb, min(128, smax)), 4), min(4, max_warps)
+    else:
+        ctas = MAX_CTAS
+        warps = min(_cdiv(_cdiv(need, MAX_CTAS), 4) * 4,
+                    max_warps - max_warps % 4 or max_warps)
+    total = ctas * warps
+    S = _cdiv(_cdiv(Wb, total), 16) * 16 if need <= total else smax
+    G = (WINDOW - S) // 2
+    strips = _cdiv(Wb, S)
+    return (min(ctas, strips), min(warps, strips), S, G,
+            G // delta_x if delta_x else 64)
 
 
 def dp_forward(e_tot: torch.Tensor, rig: torch.Tensor | None,
@@ -105,13 +165,14 @@ def dp_forward(e_tot: torch.Tensor, rig: torch.Tensor | None,
     rigc = (_rigc_device(delta_x, H, dev) if rigc_vec is None
             else rigc_vec)
     scratch = frontier_scratch(Wb, dev)
+    geo = strip_geometry(Wb, delta_x, warp_cap(Wb, dev, scratch))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lqr_dp_forward(e_tot.data_ptr(),
                                 rig.data_ptr() if has_rig else None,
                                 rigc.data_ptr(), int(bool(pref_left)),
                                 delta_x, H, Wb, H if h is None else int(h),
-                                M_last.data_ptr(), bp.data_ptr(),
+                                *geo, M_last.data_ptr(), bp.data_ptr(),
                                 None if scratch is None
                                 else scratch.data_ptr(), stream)
     _build.check(lib, rc, "lqr_dp_forward")

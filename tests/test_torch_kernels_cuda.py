@@ -24,6 +24,20 @@ torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
 
 
+def _load_smoke():
+    """chip_smoke.py (at the repository's root) as a module."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+SMOKE = _load_smoke()
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -69,7 +83,9 @@ def test_kernels_match_plain(cuda, H, W, Wb, dx, has_rig):
 
 def test_refused_launch_raises(cuda):
     """A bad argument never launches: the wrapper refuses delta_x = 64, and
-    so does the kernel's own launcher when called past the wrapper."""
+    so does the kernel's own launcher when called past the wrapper, as it
+    refuses a strip geometry whose halo is narrower than delta_x * K or a
+    cluster of more than 8 blocks."""
     from lqr_tpu_torch.ops import _build
     before = dict(dp_cuda.LAUNCHES)
     e = torch.zeros((2, 256), dtype=torch.float32, device=cuda)
@@ -79,16 +95,37 @@ def test_refused_launch_raises(cuda):
     m = torch.empty(256, device=cuda)
     bp = torch.empty((2, 256), dtype=torch.int8, device=cuda)
     rigc = torch.zeros(65, device=cuda)
-    rc = lib.lqr_dp_forward(e.data_ptr(), None, rigc.data_ptr(), 1, 64, 2,
-                            256, 2, m.data_ptr(), bp.data_ptr(), None,
-                            torch.cuda.current_stream().cuda_stream)
-    with pytest.raises(RuntimeError, match="lqr_dp_forward launch failed"):
-        _build.check(lib, rc, "lqr_dp_forward")
+    stream = torch.cuda.current_stream().cuda_stream
+    geo = dp_cuda.strip_geometry(256, 1, 12)
+    for dx, g in ((64, geo), (2, (1, 1, 160, 48, 25)), (1, (9, 1, 16, 120, 8))):
+        rc = lib.lqr_dp_forward(e.data_ptr(), None, rigc.data_ptr(), 1, dx,
+                                2, 256, 2, *g, m.data_ptr(), bp.data_ptr(),
+                                None, stream)
+        with pytest.raises(RuntimeError, match="lqr_dp_forward launch failed"):
+            _build.check(lib, rc, "lqr_dp_forward")
     assert dp_cuda.LAUNCHES == before
     # the refused launch leaves no pending error behind
     torch.cuda.synchronize()
     assert torch.equal(torch.ones(3, device=cuda) * 2,
                        torch.full((3,), 2.0, device=cuda))
+
+
+@pytest.mark.parametrize("H,W,Wb,dx,has_rig,energy", SMOKE.EDGE_CASES)
+def test_strip_kernel_edges_match_plain(cuda, H, W, Wb, dx, has_rig,
+                                        energy):
+    """Tolerance 0 on M_last, bp at every column and the seam, at the shapes
+    where the strips, halos, copy paths and chase windows meet their edges
+    (chip_smoke.EDGE_CASES)."""
+    e, rig = SMOKE._edge_case(H, W, Wb, dx, has_rig, energy, cuda)
+    assert e.is_contiguous()
+    for pref in (True, False):
+        M_k, bp_k = dp_cuda.dp_forward(e, rig, pref, dx, has_rig)
+        M_p, bp_p = dp_cuda.dp_forward_plain(e, rig, pref, dx, has_rig)
+        seam_k = dp_cuda.backtrack(M_k, bp_k, pref)
+        seam_p = dp_cuda.backtrack_plain(M_p, bp_p, pref)
+        torch.cuda.synchronize()
+        assert torch.equal(M_k, M_p) and torch.equal(bp_k, bp_p), pref
+        assert torch.equal(seam_k, seam_p), pref
 
 
 @pytest.mark.parametrize("dx,has_rig,h", [(1, False, None), (2, True, 30)])
@@ -478,12 +515,6 @@ def test_carve_step_loop_cuda_matches_native(cuda, fuse):
     """chip_smoke.py's carve_step loop on the card, 150 seams of a 96 x 300
     image with bias and rigidity (a 128-seam commit and a partial one),
     against the C++ reference; two kernel launches per seam."""
-    import importlib.util
-    import pathlib
-    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
     rng = np.random.default_rng(12)
     h, w, k = 96, 300, 150
     img = _image(6, h, w)
@@ -493,7 +524,7 @@ def test_carve_step_loop_cuda_matches_native(cuda, fuse):
                        has_rig=True)
     st = init_state(cfg, img, bias=bias, rig=rig, device=cuda)
     before = dict(dp_cuda.LAUNCHES)
-    got = smoke.carve_step_loop(cfg, st, k, fuse)
+    got = SMOKE.carve_step_loop(cfg, st, k, fuse)
     torch.cuda.synchronize()
     launched = {n: dp_cuda.LAUNCHES[n] - before[n] for n in before}
     fwd = "dp_energy_forward" if fuse else "dp_forward"

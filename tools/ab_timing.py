@@ -4,10 +4,10 @@
     python3 tools/ab_timing.py ROOT LABEL
 
 Imports ROOT's chip_smoke.py and ROOT's lqr_tpu_torch, builds its kernels,
-and times what phase 5 times before the fused step existed: 100 seams at
-2048x2048 through extend_map, both extend_map routes at 1024x768 with masks
-and at 512x384, BatchCarver.carve on cfg5 and one cfg4 wave, and the
-column-sharded 2048x2048. Each line is prefixed with LABEL. To compare two
+and times what phase 5 times: 100 seams at 2048x2048 through extend_map and
+through both modes of the fused step, both extend_map routes at 1024x768
+with masks and at 512x384, BatchCarver.carve on cfg5 and one cfg4 wave, and
+the column-sharded 2048x2048. Each line is prefixed with LABEL. To compare two
 commits on one card, unpack the other with ``git archive`` and run both in
 turns in one call, one process each: parent, change, change, parent.
 """
@@ -37,8 +37,9 @@ def main(argv: list[str]) -> int:
     dev = torch.device("cuda", 0)
     gpu = torch.cuda.get_device_name(0)
     N, seams = smoke.N, smoke.SEAMS
-    smoke.time_routes(dev, f"{N}x{N}", (N, N), [engine.extend_map], seams,
-                      gpu)
+    smoke.time_routes(dev, f"{N}x{N}", (N, N),
+                      [engine.extend_map, smoke.fused_split,
+                       smoke.fused_inline], seams, gpu)
     routes = [engine._extend_resident, engine._extend_per_seam]
     c2 = smoke.cfg2_inputs()
     smoke.time_routes(dev, "1024x768 with bias and rig", smoke.CFG2, routes,
