@@ -17,16 +17,24 @@ Phases, one line each (any failure exits non-zero):
              rigidity, unaligned planes), a ragged h with a per-image
              rigc, and Wb=32768 (the DP's frontier in global scratch); a
              bad argument (delta_x=64, a halo narrower than delta_x * K)
-             must raise. The resident kernel: 1024x768 with bias and rigidity
+             must raise. The resident kernel: the main path's launch
+             (2048x2048, 100 seams, timed there and at cfg2's chunk),
+             1024x768 with bias and rigidity
              under GRAD_XABS and GRAD_NORM (128 seams), delta_x=2 with
-             rigidity, 512x384 without masks, and a partial chunk (72 seams
-             at depth 128). Its batched entry, with bias and rigidity, at
+             rigidity, 512x384 without masks, a partial chunk (72 seams
+             at depth 128), and its edges for both entries
+             (RESIDENT_EDGES: Wb % 4 != 0, Wb < 32, H = 1, H - 1 not a
+             multiple of K, delta_x 0, 3 and 10, ties, unaligned planes;
+             the batched entry with ragged heights). Its batched entry,
+             with bias and rigidity, at
              the padded shapes of the batch paths below: four maps at
              360x640 (per-map width, seam count, one of them 0, and true
-             height), three at 480x640 and two at 1024x1024. dp_block: R=32
-             rows at the
+             height), three at 480x640 and two at 1024x1024; and timed at
+             the cfg4 wave's shape (256 maps of 1024x1024, 8 seams).
+             dp_block: R=32 rows at the
              2048^2 shard width on four shards (512 + 2*32*delta_x), delta_x
-             1 and 2, rigidity on and off, `first` on and off. The fused
+             1 and 2, rigidity on and off, `first` on and off, and a slab
+             of 30001 lanes (its frontier in global scratch). The fused
              seam step's two kernels: dp_energy_forward at 2048x2048
              (delta_x=1, both side preferences; delta_x=2 with rigidity), at
              cfg2 with bias and rigidity under GRAD_XABS, GRAD_NORM and
@@ -36,7 +44,9 @@ Phases, one line each (any failure exits non-zero):
              at the shapes of the paths below.
 4. slice   — the paths through the public surfaces, each with the launch
              counts set to 0 just before it and read just after: Carver at
-             2048x2048, 100 seams (the per-seam kernels); cfg2, 1024x768
+             2048x2048, 100 seams (the resident kernel), and the same
+             image on the per-seam route, driven explicitly (the DP and
+             backtrack kernels); cfg2, 1024x768
              with preservation, discard and rigidity masks and an RGBA aux
              image, 100 then 300 seams (the resident kernel); cfg1,
              512x384, 100 seams; BatchCarver on cfg5 (300 frames of
@@ -54,7 +64,8 @@ Phases, one line each (any failure exits non-zero):
              the DP kernel, and with the energy inline; cfg2's image with
              its bias and rigidity planes, energy inline.
 5. timing  — synchronized, median of 3 fresh runs: 100 seams at 2048x2048
-             through extend_map and through both modes of the fused step,
+             through both extend_map routes (the resident one is
+             extend_map's there) and through both modes of the fused step,
              both extend_map routes at 1024x768 with masks and at 512x384;
              img_seams/s of BatchCarver.carve on cfg5 and on the cfg4
              wave; us/seam of the column-sharded 2048x2048.
@@ -84,6 +95,7 @@ CFG2 = (768, 1024)    # cfg2: preservation, discard and rigidity masks
 RIGIDITY = 100.0      # cfg2's global rigidity
 CFG5 = (360, 640, 300, 160)   # (h, w) of a GAP frame, frames, last seams
 CFG4 = (1024, 1024, 256, 256)  # (h, w), images in one wave, seams each
+CFG4_KC = 8           # seams of phase 3's batched launch at the cfg4 shape
 SHARDS = 4            # column shards of the one card
 # the ragged batch: (h, w, seams) of each image
 RAGGED = ((360, 640, 60), (300, 512, 40), (480, 600, 100), (200, 384, 30),
@@ -220,6 +232,112 @@ def _edge_case(H, W, Wb, dx, has_rig, energy, device):
         buf[1:] = torch.from_numpy(a.ravel()).to(device)
         return buf[1:].view(a.shape)
     return offset(e), None if rig is None else offset(rig)
+
+
+# The resident kernel's edges, for both entries: (H, Wb, w0, kc, delta_x,
+# nrg, masks, planes) with planes "ties" (a reader plane of six levels, a
+# bias of eighths, a rigidity of integers), "flat" (one level: every
+# candidate ties) or "offset" (the planes 4 bytes past a 16-byte boundary)
+RESIDENT_EDGES = [
+    (40, 1021, 1000, 30, 1, 0, True, "ties"),     # Wb % 4 != 0
+    (30, 20, 20, 10, 1, 2, False, "ties"),        # Wb < 32
+    (1, 300, 290, 20, 2, 1, True, "ties"),        # H = 1
+    (70, 640, 640, 12, 1, 0, True, "ties"),       # H - 1 not a multiple of K
+    (50, 256, 250, 16, 0, 0, True, "ties"),       # delta_x = 0
+    (50, 700, 690, 16, 3, 2, True, "ties"),       # delta_x = 3
+    (40, 512, 500, 12, 10, 6, True, "ties"),      # run-time delta_x
+    (60, 384, 384, 20, 1, 0, False, "flat"),      # every candidate ties
+    (48, 500, 480, 14, 2, 1, True, "offset"),     # unaligned planes
+]
+
+
+def resident_edge(case, device, maps: int = 0):
+    """One of RESIDENT_EDGES' inputs on the device: (b, bias, rig, posmap)
+    of one map, or of a batch of `maps` maps (then [maps, H, Wb] and the
+    rows at y >= h[i] of map i zero, h = H, H // 2 + 1, 1, ...)."""
+    import torch
+    H, Wb, w0, kc, dx, nrg, masks, kind = case
+    n = max(maps, 1)
+    rng = np.random.default_rng(H * 7 + Wb + dx)
+    planes = np.zeros((3, n, H, Wb), np.float32)
+    planes[0, :, :, :w0] = (rng.integers(0, 6, (n, H, w0)) / np.float32(5)
+                            if kind != "flat" else 0.5)
+    planes[1, :, :, :w0] = np.round(rng.standard_normal((n, H, w0)) * 4) / 8
+    planes[2, :, :, :w0] = np.abs(np.round(rng.standard_normal((n, H, w0))
+                                           * 8))
+    for i, h in enumerate(resident_edge_heights(H, maps)):
+        planes[:, i, h:] = 0
+    pm = np.zeros((n, H, Wb), np.int32)
+    pm[:, :, :w0] = np.arange(w0)
+
+    def put(a):
+        if kind != "offset":
+            return torch.from_numpy(a).to(device)
+        buf = torch.empty(a.size + 1, dtype=torch.from_numpy(a).dtype,
+                          device=device)
+        buf[1:] = torch.from_numpy(a.ravel()).to(device)
+        return buf[1:].view(a.shape)
+    out = [put(x if maps else x[0]) for x in (*planes, pm)]
+    b, bias, rig, pm_t = out
+    return b, bias if masks else None, rig if masks else None, pm_t
+
+
+def resident_edge_heights(H: int, maps: int) -> list:
+    """The true heights of a batch of RESIDENT_EDGES maps."""
+    return [(H, H // 2 + 1, 1)[i % 3] for i in range(maps)]
+
+
+def check_resident_edges(device, cases=RESIDENT_EDGES) -> float:
+    """Phase 3: the resident kernel's solo and batched entries against their
+    plain versions at RESIDENT_EDGES (tolerance 0 on hist rows < kc and on
+    every plane at every column): the solo entry with the side switching
+    every seam (ssf = 1) at depth 5; the batched entry on three maps of
+    ragged heights and seam counts (one of them 0). Returns the largest
+    error."""
+    import torch
+    from lqr_tpu_torch.core import engine
+    from lqr_tpu_torch.ops import carve_resident as cr
+    from lqr_tpu_torch.parallel.batch import rigc_table
+
+    err = 0.0
+    for case in cases:
+        H, Wb, w0, kc, dx, nrg, masks, kind = case
+        b, bias, rig, pm = resident_edge(case, device)
+        args = (b, bias, rig, pm, w0, 5, kc, dx, masks, masks, nrg, 1,
+                engine.KC)
+        got = cr.carve_chunk_resident(*args)
+        want = cr.carve_chunk_resident_plain(*args)
+        torch.cuda.synchronize()
+        e = max([_max_err(got[0][:kc], want[0][:kc])]
+                + [_max_err(g, w) for g, w in zip(got[1:], want[1:])
+                   if g is not None])
+        if e != 0.0 or not bool((got[0][kc:] == -1).all()):
+            raise AssertionError(f"carve_resident differs from plain at the "
+                                 f"edge {case}")
+        err = max(err, e)
+        maps = 3
+        b, bias, rig, pm = resident_edge(case, device, maps)
+        heights = resident_edge_heights(H, maps)
+        rigc = torch.from_numpy(rigc_table(heights, dx)).to(device)
+        kcs, d0 = [kc, 0, max(kc // 2, 1)], [0, 3, 9]
+        args = (b, bias, rig, pm, w0, d0, kcs, heights, rigc, dx, masks,
+                masks, nrg, 2, engine.KC)
+        params = cr._batched_params(maps, H, Wb, w0, d0, kcs, heights,
+                                    engine.KC)
+        want = cr.carve_chunk_resident_batched_plain(
+            b, bias, rig, pm, params, rigc, dx, masks, masks, nrg, 2,
+            engine.KC)
+        got = cr.carve_chunk_resident_batched(*args)
+        torch.cuda.synchronize()
+        e = max(_max_err(g, w) for g, w in zip(got, want) if g is not None)
+        if e != 0.0:
+            raise AssertionError(f"carve_resident_batched differs from plain "
+                                 f"at the edge {case}")
+        err = max(err, e)
+        say("kernels", f"carve_resident edge H={H} Wb={Wb} w0={w0} kc={kc} "
+            f"delta_x={dx} nrg={nrg} masks={masks} {kind}: solo, and batched "
+            f"(heights {heights}, kc {kcs}): max_abs_err=0.0 (tolerance 0)")
+    return err
 
 
 def check_kernels(device, n: int) -> dict:
@@ -420,7 +538,9 @@ def check_carve_step(device, n: int) -> dict:
 def check_resident(device) -> dict:
     """Phase 3, the resident kernel against its plain version on the same
     CUDA inputs (tolerance 0 on hist rows < kc and on every plane at every
-    column); returns its largest error and its times."""
+    column), the main path's own launch (2048x2048, 100 seams) first;
+    returns its largest error, its times at the main path's launch and at
+    cfg2's 128-seam chunk."""
     import torch
     from lqr_tpu_torch.core import engine
     from lqr_tpu_torch.core.state import EngineConfig, init_state, round_up
@@ -440,6 +560,8 @@ def check_resident(device) -> dict:
 
     c2 = cfg2_inputs()
     cases = [
+        # the main path's launch: Carver.resize's one chunk of SEAMS seams
+        (f"main path {N}x{N} no masks", chunk((N, N), SEAMS)),
         ("cfg2 GRAD_XABS bias+rig", chunk(CFG2, 128, 0, 1, c2["bias"],
                                           c2["rig"])),
         ("cfg2 GRAD_NORM bias+rig", chunk(CFG2, 128, 2, 1, c2["bias"],
@@ -448,9 +570,13 @@ def check_resident(device) -> dict:
         ("cfg1 512x384 no masks", chunk(CFG1, 128)),
     ]
     def compare(name, args):
+        """(kernel's outputs, largest error, the plain version's ms)."""
         got = cr.carve_chunk_resident(*args)
-        want = cr.carve_chunk_resident_plain(*args)
-        torch.cuda.synchronize()
+        out = []
+        plain_ms = _cuda_ms(
+            lambda: out.append(cr.carve_chunk_resident_plain(*args)), 1,
+            warm=False)
+        want = out[0]
         kc = args[6]
         e = max([_max_err(got[0][:kc], want[0][:kc])]
                 + [_max_err(g, p) for g, p in zip(got[1:], want[1:])
@@ -460,25 +586,29 @@ def check_resident(device) -> dict:
             f"d0={args[5]} kc={kc}: max_abs_err={e} (tolerance 0)")
         if e != 0.0 or not bool((got[0][kc:] == -1).all()):
             raise AssertionError(f"carve_resident differs from plain: {name}")
-        return got, e
+        return got, e, plain_ms
 
-    first, err = compare(*cases[0])
-    for case in cases[1:]:
+    _, err, plain_ms = compare(*cases[0])
+    c2_first, e, c2_plain_ms = compare(*cases[1])
+    err = max(err, e)
+    for case in cases[2:]:
         err = max(err, compare(*case)[1])
-    # the partial chunk goes on from the first case's planes
-    _, b, bias, rig, pm = first
-    args = cases[0][1]
+    # the partial chunk goes on from cfg2's first chunk's planes
+    _, b, bias, rig, pm = c2_first
+    args = cases[1][1]
     err = max(err, compare("cfg2 partial chunk at depth 128",
                            (b, bias, rig, pm, args[4] - 128, 128, 72)
                            + args[7:])[1])
 
-    args = cases[0][1]
-    ms = _cuda_ms(lambda: cr.carve_chunk_resident(*args), 5)
-    plain_ms = _cuda_ms(lambda: cr.carve_chunk_resident_plain(*args), 1,
-                        warm=False)
-    say("kernels", f"carve_resident, 128 seams at 1024x768 with bias and "
-        f"rig: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"err": err, "ms": ms, "plain_ms": plain_ms}
+    err = max(err, check_resident_edges(device))
+    ms = _cuda_ms(lambda: cr.carve_chunk_resident(*cases[0][1]), 5)
+    c2_ms = _cuda_ms(lambda: cr.carve_chunk_resident(*args), 5)
+    say("kernels", f"carve_resident, the main path's launch ({SEAMS} seams "
+        f"at {N}x{N}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; 128 "
+        f"seams at 1024x768 with bias and rig: kernel {c2_ms:.4f} ms, plain "
+        f"{c2_plain_ms:.4f} ms")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "cfg2": c2_ms,
+            "cfg2_plain": c2_plain_ms}
 
 
 def _check_carve(label, img, vs, out, vs_ref, w, aux=None, aux_out=None):
@@ -501,8 +631,9 @@ def _expect_launches(label, launches, want):
 
 
 def run_main_slice(device, n: int, seams: int):
-    """Phase 4: the 2048x2048 main path through the public Carver. Returns
-    its launch counts and the visibility map (equal to native.carve's)."""
+    """Phase 4: the 2048x2048 main path through the public Carver (the
+    resident route: one launch for the 100 seams). Returns its launch
+    counts and the visibility map (equal to native.carve's)."""
     import lqr_tpu_torch
     from lqr_tpu_torch import native
     from lqr_tpu_torch.ops import dp_cuda
@@ -520,13 +651,40 @@ def run_main_slice(device, n: int, seams: int):
     ref_secs = time.perf_counter() - t1
     _check_carve("main", img, carver.vmap_dump().data, out, vs_ref,
                  n - seams)
-    _expect_launches("main", launches, _only(dp_forward=seams,
-                                             backtrack=seams))
+    _expect_launches("main", launches, _only(carve_resident=1))
     say("slice", f"Carver.resize({n - seams}, {n}) + get_image on {n}x{n}: "
         f"{secs:.3f} s incl. first calls; vs == native.carve, image == "
         f"native.materialize (C++ reference took {ref_secs:.1f} s); "
         f"launches {launches}")
     return launches, vs_ref
+
+
+def run_main_per_seam(device, n: int, seams: int, vs_ref) -> dict:
+    """Phase 4: the 2048x2048 main path's image on the per-seam route,
+    driven explicitly (engine._extend_per_seam; the gate takes 2048^2 to
+    the resident route): the DP and backtrack kernels once a seam, vs equal
+    to native.carve's and the image to native.materialize. Returns the
+    launch counts."""
+    import torch
+    from lqr_tpu_torch.core import engine
+    from lqr_tpu_torch.core.state import EngineConfig, init_state
+
+    img = make_test_image(n)
+    cfg = EngineConfig(H=n, Wb=n, C=3)
+    st = init_state(cfg, img, device=device)
+    torch.cuda.synchronize()
+    reset_launches()
+    out = engine._extend_per_seam(cfg, st, seams)
+    torch.cuda.synchronize()
+    launches = _launches()
+    _expect_launches("main, per-seam route", launches,
+                     _only(dp_forward=seams, backtrack=seams))
+    image = engine.materialize(cfg, out, n - seams, n - seams)
+    _check_carve("main, per-seam route", img, out.vs.cpu().numpy(),
+                 image.cpu().numpy(), vs_ref, n - seams)
+    say("slice", f"{n}x{n}, {seams} seams on the per-seam route: vs == "
+        f"native.carve, image == native.materialize; launches {launches}")
+    return launches
 
 
 def carve_step_loop(cfg, st, k: int, fuse_energy: bool):
@@ -751,6 +909,23 @@ def check_dp_block(device) -> dict:
             say("kernels", f"dp_block R={R} We={We} delta_x={dx} "
                 f"rig={has_rig}, first on/off, both sides: max_abs_err="
                 f"{err} (tolerance 0)")
+    # a slab wider than two frontier rows of shared memory: the frontier
+    # pair in a global scratch
+    We = 30001
+    for first, dx, has_rig in ((False, 1, False), (True, 2, True)):
+        e, rig = _random_case(12, We - 7, We, dx, has_rig, 60 + dx, device)
+        m0 = e[-1].flip(0).contiguous()
+        for pref in (True, False):
+            got = db.dp_block(m0, e, rig, pref, first, dx, has_rig, N)
+            want = db.dp_block_plain(m0, e, rig, pref, first, dx, has_rig, N)
+            torch.cuda.synchronize()
+            e_b = max(_max_err(got[0], want[0]), _max_err(got[1], want[1]))
+            if e_b != 0.0:
+                raise AssertionError(f"wide dp_block differs from plain: "
+                                     f"{dx=} {first=} {pref=}")
+        say("kernels", f"dp_block R=12 We={We} delta_x={dx} rig={has_rig} "
+            f"first={first} (frontier in global scratch), both sides: "
+            f"max_abs_err=0.0 (tolerance 0)")
     G = R
     e, _ = _random_case(R, Wl + G, Wl + 2 * G, 1, False, 50, device)
     m0 = e[0].flip(0).contiguous()
@@ -828,7 +1003,31 @@ def check_resident_batched(device) -> dict:
                              ([(1024, 1024)] * 2, [8, 6], 20)):
         e, _, _ = _batched_case(device, sizes, kcs, 1, RIGIDITY, seed)
         err = max(err, e)
-    return {"err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"err": err, "ms": ms, "plain_ms": plain_ms,
+            "cfg4": time_batched_cfg4(device)}
+
+
+def time_batched_cfg4(device) -> float:
+    """Phase 3: the batched entry at the cfg4 wave's shape, 256 maps of
+    1024x1024 (a smooth test image's reader plane, no masks), kc = CFG4_KC
+    seams; ms a launch, the mean of 3 after a warm-up."""
+    import torch
+    from lqr_tpu_torch.core import engine
+    from lqr_tpu_torch.core.energy import reader_plane
+    from lqr_tpu_torch.ops import carve_resident as cr
+
+    h, w, B, _ = CFG4
+    b = reader_plane(torch.from_numpy(make_test_image(w, seed=10)[:h])
+                     .to(device), 0).expand(B, h, w).contiguous()
+    pm = torch.arange(w, dtype=torch.int32, device=device).expand(
+        B, h, w).contiguous()
+    rigc = torch.zeros((B, 2), device=device)
+    args = (b, None, None, pm, w, 0, CFG4_KC, h, rigc, 1, False, False, 0,
+            2, engine.KC)
+    ms = _cuda_ms(lambda: cr.carve_chunk_resident_batched(*args), 3)
+    say("kernels", f"carve_resident_batched at the cfg4 shape ({B} maps of "
+        f"{w}x{h}, kc={CFG4_KC}): {ms:.4f} ms")
+    return ms
 
 
 # The H100 SXM's published peaks (NVIDIA's data sheet, 700 W): device
@@ -871,6 +1070,7 @@ def kernel_bounds(n: int) -> dict:
     # bias and rig, padded to 360 x 640 (check_resident_batched)
     batch = ((360, 640, 32), (300, 600, 0), (200, 500, 20), (360, 620, 25))
     R, We = 32, n // SHARDS + 2 * 32
+    c4_h, c4_w, c4_B, _ = CFG4
     per_res = _energy_ops(0, True) + _dp_ops(1, True)
     per_bat = _energy_ops(0, True) + _dp_ops(2, True)
     return {
@@ -879,13 +1079,22 @@ def kernel_bounds(n: int) -> dict:
         "dp_forward wide": _bound(4 * 256 * 32768 + 4 * 32768 + 256 * 32768,
                                   256 * 32768 * _dp_ops(1, False)),
         "backtrack": _bound(4 * W + H + 4 * H, 2 * W),
+        # the main path's launch: SEAMS seams at n x n, no masks, delta_x 1
         "carve_resident": _bound(
+            2 * 2 * 4 * H * W + 4 * SEAMS * H,
+            H * (_energy_ops(0, False) + _dp_ops(1, False))
+            * sum(W - j for j in range(SEAMS))),
+        "carve_resident cfg2": _bound(
             2 * 4 * 4 * res_h * res_w + 4 * res_kc * res_h,
             per_res * res_h * sum(res_w - j for j in range(res_kc))),
         "carve_resident_batched": _bound(
             sum(2 * 4 * 4 * 360 * 640 + 4 * k * h for h, _, k in batch if k),
             per_bat * sum(h * sum(w - j for j in range(k))
                           for h, w, k in batch)),
+        "carve_resident_batched cfg4": _bound(
+            c4_B * (2 * 2 * 4 * c4_h * c4_w + 4 * CFG4_KC * c4_h),
+            c4_B * c4_h * (_energy_ops(0, False) + _dp_ops(1, False))
+            * sum(c4_w - j for j in range(CFG4_KC))),
         "dp_block": _bound(4 * R * We + 2 * 4 * We + R * We,
                            R * We * _dp_ops(1, False)),
         "dp_energy_forward": _bound(
@@ -1145,13 +1354,18 @@ def main() -> int:
         r = check(device)
         for key in ("err", "ms", "plain_ms"):
             k[key][kname] = r[key]
+        for cell in ("cfg2", "cfg4"):
+            if cell in r:
+                k["ms"][f"{kname} {cell}"] = r[cell]
     r = check_carve_step(device, N)
     for key in ("err", "ms", "plain_ms"):
         k[key].update(r[key])
 
     launches, vs_main = run_main_slice(device, N, SEAMS)
-    l2, vs_cfg2 = run_cfg2(device)
-    launches["carve_resident"] = l2["carve_resident"]
+    per_seam = run_main_per_seam(device, N, SEAMS, vs_main)
+    for kname in ("dp_forward", "backtrack"):
+        launches[kname] = per_seam[kname]
+    _, vs_cfg2 = run_cfg2(device)
     run_cfg1(device, SEAMS)
     frames, counts = cfg5_inputs()
     launches["carve_resident_batched"] = run_cfg5(
@@ -1165,7 +1379,8 @@ def main() -> int:
         launches[kname] = fl[kname]
 
     time_routes(device, f"{N}x{N}", (N, N),
-                [engine.extend_map, fused_split, fused_inline], SEAMS, gpu)
+                [engine._extend_per_seam, engine._extend_resident,
+                 fused_split, fused_inline], SEAMS, gpu)
     routes = [engine._extend_resident, engine._extend_per_seam]
     c2 = cfg2_inputs()
     time_routes(device, "1024x768 with bias and rig", CFG2, routes, SEAMS,
@@ -1203,6 +1418,13 @@ def main() -> int:
     bounds = kernel_bounds(N)
     for kname, (ms_b, by) in bounds.items():
         say("bounds", f"{kname}: {ms_b * 1e3:.4f} us, bound by {by}")
+    for kname, shape in (("carve_resident", f"the main path's launch "
+                                            f"({N}x{N}, {SEAMS} seams)"),
+                         ("carve_resident cfg2", "cfg2's 128-seam chunk"),
+                         ("carve_resident_batched cfg4", "the cfg4 shape")):
+        say("bounds", f"{kname.split()[0]} at {shape}: "
+            f"{k['ms'][kname]:.4f} ms, bound {bounds[kname][0]:.4f} ms "
+            f"({bounds[kname][1]})")
     # no single PyTorch call computes a DP scan, a chase or a resident
     # chunk, so no kernel has a library time
     kernels = [{

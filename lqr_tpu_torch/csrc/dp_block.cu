@@ -23,10 +23,11 @@
 // Mosaic constraints, lqr_tpu/ops/dp_block.py:11-15 and
 // lqr_tpu/parallel/sharding.py:214-226); We is any width.
 //
-// Design: the DP kernel's (dp_forward.cu): one thread block; up to 1024
-// threads stride over the We columns; the frontier pair in shared memory
-// (2 * We * 4 bytes; a slab wider than the opt-in shared memory, about
-// 29 000 lanes, is refused); one __syncthreads() per row.
+// Design: one thread block; up to 1024 threads stride over the We
+// columns; the frontier pair in shared memory (2 * We * 4 bytes), or, when
+// that pair exceeds the opt-in shared memory, in a [2, We] f32 global
+// scratch the caller passes, which the block's own L1 serves; one
+// __syncthreads() per row. Either way We is any width.
 //
 // What bounds it on this card: launch and row latency. At the 2048^2
 // shard width on 4 shards (We = 512 + 2 * 32), R = 32 rows are 32 barrier
@@ -49,14 +50,13 @@ namespace {
 constexpr int kMaxThreads = 1024;
 constexpr int kDefaultSmem = 48 * 1024;
 
-__global__ void dp_block_kernel(const float* __restrict__ m0,
-                                const float* __restrict__ e,
-                                const float* __restrict__ rig,
-                                const float* __restrict__ rigc,
-                                int pref_left, int first, int delta_x, int R,
-                                int We, float* __restrict__ m_out,
-                                int8_t* __restrict__ bp) {
-  extern __shared__ float frontier[];
+// R rows of the slab over the frontier pair `frontier` ([2, We]: shared
+// memory, or the global scratch of a wide slab)
+__device__ __forceinline__ void dp_block_rows(
+    float* frontier, const float* __restrict__ m0,
+    const float* __restrict__ e, const float* __restrict__ rig,
+    const float* __restrict__ rigc, int pref_left, int first, int delta_x,
+    int R, int We, float* __restrict__ m_out, int8_t* __restrict__ bp) {
   float* prev = frontier;
   float* cur = frontier + We;
   const bool left = pref_left != 0;
@@ -94,20 +94,55 @@ __global__ void dp_block_kernel(const float* __restrict__ m0,
   for (int x = threadIdx.x; x < We; x += blockDim.x) m_out[x] = prev[x];
 }
 
+__global__ void dp_block_kernel(const float* __restrict__ m0,
+                                const float* __restrict__ e,
+                                const float* __restrict__ rig,
+                                const float* __restrict__ rigc,
+                                int pref_left, int first, int delta_x, int R,
+                                int We, float* __restrict__ m_out,
+                                int8_t* __restrict__ bp) {
+  extern __shared__ float frontier[];
+  dp_block_rows(frontier, m0, e, rig, rigc, pref_left, first, delta_x, R, We,
+                m_out, bp);
+}
+
+// The same rows with the frontier pair in a global scratch
+__global__ void dp_block_wide_kernel(const float* __restrict__ m0,
+                                     const float* __restrict__ e,
+                                     const float* __restrict__ rig,
+                                     const float* __restrict__ rigc,
+                                     int pref_left, int first, int delta_x,
+                                     int R, int We, float* __restrict__ m_out,
+                                     int8_t* __restrict__ bp,
+                                     float* __restrict__ scratch) {
+  dp_block_rows(scratch, m0, e, rig, rigc, pref_left, first, delta_x, R, We,
+                m_out, bp);
+}
+
 }  // namespace
 
 extern "C" {
 
 // m0: [We] f32 (read unless `first`); e, rig: [R, We] f32 (rig may be
 // null); rigc: [delta_x + 1] f32 on the device; m_out: [We] f32; bp:
-// [R, We] int8. Launches on `stream` and returns the launch's cudaError_t
-// (0 on success), clearing it.
+// [R, We] int8; scratch: null, or [2 * We] f32 on the device to hold the
+// frontier pair when 2 * We * 4 bytes exceed the opt-in shared memory.
+// Launches on `stream` and returns the launch's cudaError_t (0 on success),
+// clearing it.
 int lqr_dp_block(const float* m0, const float* e, const float* rig,
                  const float* rigc, int pref_left, int first, int delta_x,
-                 int R, int We, float* m_out, int8_t* bp, void* stream) {
+                 int R, int We, float* m_out, int8_t* bp, float* scratch,
+                 void* stream) {
   if (R < 1 || We < 1 || delta_x < 0 || delta_x > 63 ||
       (!first && m0 == nullptr))
     return (int)cudaErrorInvalidValue;
+  const int threads = We < kMaxThreads ? ((We + 31) / 32) * 32 : kMaxThreads;
+  if (scratch) {
+    dp_block_wide_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(
+        m0, e, rig, rigc, pref_left, first, delta_x, R, We, m_out, bp,
+        scratch);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = (size_t)2 * We * sizeof(float);
   if (smem > (size_t)kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -118,7 +153,6 @@ int lqr_dp_block(const float* m0, const float* e, const float* rig,
       return (int)err;
     }
   }
-  const int threads = We < kMaxThreads ? ((We + 31) / 32) * 32 : kMaxThreads;
   dp_block_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
       m0, e, rig, rigc, pref_left, first, delta_x, R, We, m_out, bp);
   return (int)cudaGetLastError();

@@ -1,6 +1,6 @@
 // The energy of one pixel from the reader plane (SPEC.md §2), shared by
-// carve_resident.cu and carve_step.cu so that both kernels compute it with
-// the same loads and in the same op order as core/energy.py:
+// carve_resident.cu and carve_step.cu so that both kernels compute it in
+// the op order of core/energy.py (carve_step.cu also with load_px's loads):
 //
 //   gx = (b[y, x+1] - b[y, x-1]) * 0.5          edges replicated at lane 0
 //                                               and lane w - 1
@@ -26,10 +26,9 @@ struct Px {
   float l, r, u, d, bias, rig;
 };
 
-// The resident kernel reads and writes its planes in one launch, so no
-// pointer to them is both const and __restrict__: a non-coherent load
-// (ld.global.nc) could return a value from before the compaction of the
-// previous seam.
+// A kernel that reads and writes its planes in one launch takes no pointer
+// to them that is both const and __restrict__: a non-coherent load
+// (ld.global.nc) could return a value from before the last compaction.
 __device__ __forceinline__ void load_px(Px& p, const float* b,
                                         const float* bias, const float* rig,
                                         int fam, int y, int x, int h, int Wb,

@@ -11,6 +11,7 @@ arithmetic IEEE: no ``--use_fast_math``, no ``-prec-sqrt=false``, and
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import pathlib
@@ -24,7 +25,9 @@ SO = BUILD / "liblqr_kernels.so"
 SOURCES = (CSRC / "dp_forward.cu", CSRC / "backtrack.cu",
            CSRC / "carve_resident.cu", CSRC / "dp_block.cu",
            CSRC / "carve_step.cu")
-HEADERS = (CSRC / "seam_dp.cuh", CSRC / "energy.cuh")
+HEADERS = (CSRC / "seam_dp.cuh", CSRC / "energy.cuh",
+           CSRC / "strip_dp.cuh", CSRC / "strip_sweep.inc",
+           CSRC / "chase.cuh")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC"]
@@ -40,10 +43,10 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def _stale() -> bool:
-    if not SO.exists():
+def _stale(so: pathlib.Path) -> bool:
+    if not so.exists():
         return True
-    built = SO.stat().st_mtime
+    built = so.stat().st_mtime
     return any(src.stat().st_mtime > built for src in SOURCES + HEADERS)
 
 
@@ -65,34 +68,52 @@ def _run(cmds: list[list[str]]) -> None:
         raise RuntimeError("\n".join(failed))
 
 
-def build() -> pathlib.Path:
-    """Compile the kernels if the library is missing or stale. Raises
-    RuntimeError with nvcc's output when the build fails."""
-    if not _stale():
-        return SO
-    BUILD.mkdir(parents=True, exist_ok=True)
+def build(so: pathlib.Path = SO, flags: tuple = ()) -> pathlib.Path:
+    """Compile the kernels (with extra nvcc flags, e.g. a -D define of a
+    tool's instrumented build) into the library `so` if it is missing or
+    stale. Raises RuntimeError with nvcc's output when the build fails."""
+    if not _stale(so):
+        return so
+    so.parent.mkdir(parents=True, exist_ok=True)
     tag = os.getpid()
-    objs = [BUILD / f"{src.stem}.{tag}.o" for src in SOURCES]
-    tmp = SO.with_name(f"{SO.name}.{tag}.tmp")
+    objs = [so.with_name(f"{src.stem}.{tag}.o") for src in SOURCES]
+    tmp = so.with_name(f"{so.name}.{tag}.tmp")
     try:
-        _run([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        _run([[_nvcc(), *NVCC_FLAGS, *flags, "-c", "-o", str(obj), str(src)]
               for src, obj in zip(SOURCES, objs)])
         _run([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
                *map(str, objs)]])
-        os.replace(tmp, SO)  # atomic: a concurrent loader never sees a part
+        os.replace(tmp, so)  # atomic: a concurrent loader never sees a part
     finally:
         tmp.unlink(missing_ok=True)
         for obj in objs:
             obj.unlink(missing_ok=True)
-    return SO
+    return so
 
 
 def load() -> ctypes.CDLL:
     """The kernel library, built if needed, with argtypes set."""
     global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(str(build()))
+    if _lib is None:
+        _lib = bind(ctypes.CDLL(str(build())))
+    return _lib
+
+
+@contextlib.contextmanager
+def using(lib: ctypes.CDLL):
+    """Inside the block every wrapper launches from `lib` (a bound build of
+    the same sources, e.g. tools/resident_phases.py's instrumented one);
+    the library load() gave before is restored after it."""
+    global _lib
+    saved, _lib = _lib, lib
+    try:
+        yield lib
+    finally:
+        _lib = saved
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argtypes and restypes of the kernels' entry points."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.lqr_dp_forward.restype = i
     lib.lqr_dp_forward.argtypes = [p, p, p] + [i] * 10 + [p] * 4
@@ -101,18 +122,17 @@ def load() -> ctypes.CDLL:
     lib.lqr_backtrack.restype = i
     lib.lqr_backtrack.argtypes = [p, p, i, i, i, p, p]
     lib.lqr_carve_resident.restype = i
-    lib.lqr_carve_resident.argtypes = [p] * 8 + [i] * 9 + [p]
+    lib.lqr_carve_resident.argtypes = [p] * 9 + [i] * 16 + [p]
     lib.lqr_carve_resident_batched.restype = i
-    lib.lqr_carve_resident_batched.argtypes = [p] * 9 + [i] * 7 + [p]
+    lib.lqr_carve_resident_batched.argtypes = [p] * 10 + [i] * 14 + [p]
     lib.lqr_dp_block.restype = i
-    lib.lqr_dp_block.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p]
+    lib.lqr_dp_block.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p, p]
     lib.lqr_dp_energy_forward.restype = i
     lib.lqr_dp_energy_forward.argtypes = [p] * 4 + [i] * 6 + [p] * 3
     lib.lqr_backtrack_compact.restype = i
     lib.lqr_backtrack_compact.argtypes = [p] * 5 + [i] * 4 + [p] * 5
     lib.lqr_cuda_error_string.restype = ctypes.c_char_p
     lib.lqr_cuda_error_string.argtypes = [i]
-    _lib = lib
     return lib
 
 

@@ -7,30 +7,43 @@ planes and posmap after kc seams, every plane zero at x >= w0 - kc, and
 JAX function leaves them as garbage). The input tensors are left as they
 are. On a CPU tensor it runs ``carve_chunk_resident_plain``; on a CUDA
 tensor it launches ``csrc/carve_resident.cu`` on the current stream
-without synchronizing, or raises. There is no fallback from a failed launch
-to the plain version.
+without synchronizing (every scratch from ``torch.empty``), or raises.
+There is no fallback from a failed launch to the plain version.
 
-The gate is the port's own. The kernel keeps its planes in global memory
-and counts on the L2 to hold them for the whole chunk, so ``resident_ok``
-admits a map when the planes it carries fit ``RESIDENT_BUDGET``: 20 MiB,
-40 % of the H100's 50 MB L2, which leaves the rest of the L2 to the
-backpointer writes and to whatever else runs. 512x384 (1.8 MB) and
-1024x768 with bias and rigidity (13.4 MB) are admitted; 2048x2048 (37.7 MB)
-takes the per-seam route. The TPU's criteria (H % CH, the 14 MB VMEM limit)
-are not carried over.
+The kernel carves a chunk with one thread-block cluster per map
+(``csrc/carve_resident.cu``): per seam an energy pass into an E scratch
+over every warp of the cluster, the warp-strip DP of ``csrc/strip_dp.cuh``
+on the geometry ``resident_geometry`` picks, the start column and the
+windowed chase of ``csrc/chase.cuh`` on the cluster's first block, and the
+record and compaction over every warp. It takes planes whose rows are a
+multiple of 4 floats and 16-byte aligned: the wrapper carves copies
+padded to ``padded_width(Wb)`` columns and returns them cut back to Wb.
+
+The gate is the port's own, set by the medians of both extend_map routes
+in chip_smoke.py phase 5 and tools/ab_timing.py (NVIDIA H100 80GB HBM3,
+700 W): the resident route took 308 against 680-807 us/seam at cfg2
+(1024x768 with bias and rigidity, 13.4 MB of planes), 119 against 500-546
+at cfg1 (512x384, 1.8 MB) and 810 against 872-873 at 2048x2048 without
+masks (37.7 MB). So ``resident_ok`` admits a map whose planes fit
+``RESIDENT_BUDGET``, the largest map measured: 2048x2048 without masks,
+36 MiB, the main path, takes the resident route. Larger maps, where the
+cluster's energy pass and compaction (on 8 SMs) grow with the map while
+the per-seam route's glue runs on every SM, are not measured and keep the
+per-seam route. The TPU's criteria (H % CH, the 14 MB VMEM limit) are not
+carried over.
 
 ``carve_chunk_resident_batched`` carves one chunk for every map of a
-``[B, H, Wb]`` batch in one launch, one thread block per map, each with its
+``[B, H, Wb]`` batch in one launch, one block of BATCH_WARPS warps per map
+(a wave of 256 maps in flight at once, two blocks an SM), each with its
 own ``w0``, ``d0``, ``kc``, true height ``h`` and row of a ``rigc [B,
 delta_x + 1]`` table (rows >= h of a padded map pass through, as in
 ``lqr_tpu.core.dp``). Its plain version is the loop over the maps of
 ``carve_chunk_resident_plain``. Its gate, ``batched_resident_ok``, is not
-the L2 budget: that is a criterion for one map on one SM, whose planes the
-L2 can hold through a chunk. A batch's maps run on up to 132 SMs at once
-and their planes stream from device memory whatever their size, as they do
-on the per-seam route, which would carve the maps one at a time on one SM.
-So a batch of two or more maps takes the batched kernel whenever its
-columns fit the kernel (Wb <= MAX_WB); a batch of one keeps the solo gate.
+the solo gate: a batch's maps run on all SMs at once and their planes
+stream from device memory whatever their size, as they do on the per-seam
+route, which would carve the maps one at a time. So a batch of two or more
+maps takes the batched kernel whenever its columns fit the kernel (Wb <=
+MAX_WB); a batch of one keeps the solo gate.
 """
 
 from __future__ import annotations
@@ -45,8 +58,56 @@ __all__ = ["RESIDENT_BUDGET", "MAX_WB", "resident_bytes", "resident_ok",
            "carve_chunk_resident_plain", "carve_chunk_resident_batched",
            "carve_chunk_resident_batched_plain"]
 
-RESIDENT_BUDGET = 20 << 20      # bytes of planes; the H100's L2 is 50 MiB
-MAX_WB = 8192                   # 1024 threads x 8 columns (the kernel's)
+RESIDENT_BUDGET = 36 << 20      # bytes of planes: 2048 x 2048 x 9 B, the
+                                # largest map measured (see the module doc)
+MAX_WB = 8192                   # columns: the frontier pair and M_last
+                                # fit shared memory beside the rings
+# csrc/carve_resident.cu: the solo entry's cluster (blocks, warps a block)
+# and the batched entry's warps per map; the static shared memory beside
+# the dynamic (the chase's two windows and the warps' reduction slots)
+SOLO_CLUSTER = (8, 8)
+BATCH_WARPS = 4
+STATIC_SMEM = 2 * 32 * 144 + 8 * 8
+
+
+def padded_width(Wb: int) -> int:
+    """The kernel's row stride for a map of Wb columns: a multiple of 4."""
+    return -(-Wb // 4) * 4
+
+
+def resident_geometry(Wp: int, delta_x: int, batched: bool,
+                      max_warps: int = SOLO_CLUSTER[1]):
+    """(csize, nwarps, ctas, warps, S, G, K) of the resident kernel for a
+    map of Wp columns: a cluster of csize blocks of nwarps warps, whose
+    first ctas blocks' first warps warps run the DP's strips (S kept
+    columns, G = (256 - S) / 2 halo columns, K rows between exchanges; see
+    dp_cuda.strip_geometry). The solo entry: SOLO_CLUSTER, and the strips
+    of strip_geometry with at most max_warps warps a block. The batched
+    entry: one block of BATCH_WARPS warps, the fewest strips a warp whose
+    halo is wide enough (G >= 8 * delta_x)."""
+    if not batched:
+        ctas, warps, S, G, K = dp_cuda.strip_geometry(Wp, delta_x, max_warps)
+        return (*SOLO_CLUSTER, ctas, warps, S, G, K)
+    smax = dp_cuda.WINDOW - 16 * delta_x
+    m = 1
+    while -(-Wp // (BATCH_WARPS * m * 16)) * 16 > smax:
+        m += 1
+    S = -(-Wp // (BATCH_WARPS * m * 16)) * 16
+    G = (dp_cuda.WINDOW - S) // 2
+    return (1, BATCH_WARPS, 1, min(BATCH_WARPS, -(-Wp // S)), S, G,
+            G // delta_x if delta_x else 64)
+
+
+def _smem_bytes(Wp: int, warps: int) -> int:
+    """Dynamic shared memory of a block: the DP warps' rings, the frontier
+    pair and M_last."""
+    return warps * dp_cuda.WARP_RING + 3 * Wp * 4
+
+
+def _geometry(Wp: int, delta_x: int, batched: bool, device) -> tuple:
+    room = dp_cuda.smem_optin(device) - STATIC_SMEM - 3 * Wp * 4
+    return resident_geometry(Wp, delta_x, batched,
+                             min(SOLO_CLUSTER[1], room // dp_cuda.WARP_RING))
 
 
 def resident_bytes(H: int, Wb: int, has_bias: bool, has_rig: bool) -> int:
@@ -115,12 +176,15 @@ def carve_chunk_resident(cur_b, cur_bias, cur_rig, posmap, w0: int, d0: int,
 
     lib = _build.load()
     dev = cur_b.device
-    # the kernel carves in place: it works on copies
-    b, pm = cur_b.clone(), posmap.clone()
-    bias = cur_bias.clone() if has_bias else cur_bias
-    rig = cur_rig.clone() if has_rig else cur_rig
+    Wp = padded_width(Wb)
+    geo = _geometry(Wp, delta_x, False, dev)
+    # the kernel carves in place: it works on (padded) copies
+    b, pm = _padded(cur_b, Wp), _padded(posmap, Wp)
+    bias = _padded(cur_bias, Wp) if has_bias else cur_bias
+    rig = _padded(cur_rig, Wp) if has_rig else cur_rig
     hist = torch.empty((KC, H), dtype=torch.int32, device=dev)
-    bp = torch.empty((H, Wb), dtype=torch.int8, device=dev)
+    e = torch.empty((H, Wp), dtype=torch.float32, device=dev)
+    bp = torch.empty((H, Wp), dtype=torch.int8, device=dev)
     seam = torch.empty(H, dtype=torch.int32, device=dev)
     rigc = dp_cuda._rigc_device(delta_x, H, dev)
     with torch.cuda.device(dev):
@@ -128,12 +192,26 @@ def carve_chunk_resident(cur_b, cur_bias, cur_rig, posmap, w0: int, d0: int,
         rc = lib.lqr_carve_resident(
             b.data_ptr(), bias.data_ptr() if has_bias else None,
             rig.data_ptr() if has_rig else None, pm.data_ptr(),
-            bp.data_ptr(), seam.data_ptr(), hist.data_ptr(),
-            rigc.data_ptr(), H, Wb, int(w0), int(d0), int(kc), int(KC),
-            delta_x, nrg, int(ssf), stream)
+            e.data_ptr(), bp.data_ptr(), seam.data_ptr(), hist.data_ptr(),
+            rigc.data_ptr(), H, Wp, int(w0), int(d0), int(kc), int(KC),
+            delta_x, nrg, int(ssf), *geo, stream)
     _build.check(lib, rc, "lqr_carve_resident")
     dp_cuda.LAUNCHES["carve_resident"] += 1
-    return hist, b, bias, rig, pm
+    return (hist, _cut(b, Wb), _cut(bias, Wb) if has_bias else bias,
+            _cut(rig, Wb) if has_rig else rig, _cut(pm, Wb))
+
+
+def _padded(t: torch.Tensor, Wp: int) -> torch.Tensor:
+    """A fresh copy of t ([..., Wb]) with Wp >= Wb columns, zeros past Wb."""
+    if t.shape[-1] == Wp:
+        return t.clone()
+    out = t.new_zeros(t.shape[:-1] + (Wp,))
+    out[..., :t.shape[-1]] = t
+    return out
+
+
+def _cut(t: torch.Tensor, Wb: int) -> torch.Tensor:
+    return t if t.shape[-1] == Wb else t[..., :Wb].contiguous()
 
 
 def carve_chunk_resident_plain(cur_b, cur_bias, cur_rig, posmap, w0: int,
@@ -224,11 +302,14 @@ def carve_chunk_resident_batched(cur_b, cur_bias, cur_rig, posmap, w0, d0,
         raise ValueError(f"Wb={Wb} exceeds the kernel's {MAX_WB}")
 
     lib = _build.load()
-    b, pm = cur_b.clone(), posmap.clone()
-    bias = cur_bias.clone() if has_bias else cur_bias
-    rig = cur_rig.clone() if has_rig else cur_rig
+    Wp = padded_width(Wb)
+    geo = _geometry(Wp, delta_x, True, dev)
+    b, pm = _padded(cur_b, Wp), _padded(posmap, Wp)
+    bias = _padded(cur_bias, Wp) if has_bias else cur_bias
+    rig = _padded(cur_rig, Wp) if has_rig else cur_rig
     hist = torch.empty((B, KC, H), dtype=torch.int32, device=dev)
-    bp = torch.empty((B, H, Wb), dtype=torch.int8, device=dev)
+    e = torch.empty((B, H, Wp), dtype=torch.float32, device=dev)
+    bp = torch.empty((B, H, Wp), dtype=torch.int8, device=dev)
     seam = torch.empty((B, H), dtype=torch.int32, device=dev)
     params_d = params.to(dev)
     with torch.cuda.device(dev):
@@ -236,12 +317,13 @@ def carve_chunk_resident_batched(cur_b, cur_bias, cur_rig, posmap, w0, d0,
         rc = lib.lqr_carve_resident_batched(
             b.data_ptr(), bias.data_ptr() if has_bias else None,
             rig.data_ptr() if has_rig else None, pm.data_ptr(),
-            bp.data_ptr(), seam.data_ptr(), hist.data_ptr(),
-            rigc.data_ptr(), params_d.data_ptr(), B, H, Wb, int(KC),
-            delta_x, nrg, int(ssf), stream)
+            e.data_ptr(), bp.data_ptr(), seam.data_ptr(), hist.data_ptr(),
+            rigc.data_ptr(), params_d.data_ptr(), B, H, Wp, int(KC),
+            delta_x, nrg, int(ssf), *geo, stream)
     _build.check(lib, rc, "lqr_carve_resident_batched")
     dp_cuda.LAUNCHES["carve_resident_batched"] += 1
-    return hist, b, bias, rig, pm
+    return (hist, _cut(b, Wb), _cut(bias, Wb) if has_bias else bias,
+            _cut(rig, Wb) if has_rig else rig, _cut(pm, Wb))
 
 
 def carve_chunk_resident_batched_plain(cur_b, cur_bias, cur_rig, posmap,

@@ -12,9 +12,9 @@ The rigidity coefficients are f32(m^1.5 / H) of the image's height H.
 On a CPU tensor ``dp_block`` runs ``dp_block_plain``; on a CUDA tensor it
 launches ``csrc/dp_block.cu`` on the current stream without synchronizing,
 or raises. There is no fallback from a failed launch to the plain version.
-Unlike the Pallas kernel, ``We`` need not be a multiple of 128; the
-kernel holds two frontier rows in shared memory and refuses a slab wider
-than that (about 29 000 lanes on an H100).
+Unlike the Pallas kernel, ``We`` need not be a multiple of 128, and any
+width is taken: the kernel holds its two frontier rows in shared memory,
+or in a ``[2, We]`` f32 scratch in device memory when they do not fit it.
 """
 
 from __future__ import annotations
@@ -54,21 +54,21 @@ def dp_block(m0: torch.Tensor, e_ext: torch.Tensor, rig_ext, pref_left: bool,
 
     R, We = e_ext.shape
     dev = e_ext.device
-    if 2 * We * 4 > dp_cuda.smem_optin(dev):
-        raise ValueError(f"e_ext: We={We} lanes; the kernel's two frontier "
-                         f"rows need {2 * We * 4} bytes of shared memory, "
-                         f"more than the {dp_cuda.smem_optin(dev)} of {dev}")
     lib = _build.load()
     m_out = torch.empty(We, dtype=torch.float32, device=dev)
     bp = torch.empty((R, We), dtype=torch.int8, device=dev)
     rigc = dp_cuda._rigc_device(delta_x, H, dev)
+    scratch = (torch.empty(2 * We, dtype=torch.float32, device=dev)
+               if 2 * We * 4 > dp_cuda.smem_optin(dev) else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lqr_dp_block(m0.data_ptr(), e_ext.data_ptr(),
                               rig_ext.data_ptr() if has_rig else None,
                               rigc.data_ptr(), int(bool(pref_left)),
                               int(bool(first)), delta_x, R, We,
-                              m_out.data_ptr(), bp.data_ptr(), stream)
+                              m_out.data_ptr(), bp.data_ptr(),
+                              None if scratch is None else scratch.data_ptr(),
+                              stream)
     _build.check(lib, rc, "lqr_dp_block")
     dp_cuda.LAUNCHES["dp_block"] += 1
     return m_out, bp

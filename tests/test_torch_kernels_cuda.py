@@ -17,25 +17,25 @@ import lqr_tpu_torch
 from lqr_tpu_torch import native
 from lqr_tpu_torch.core import engine
 from lqr_tpu_torch.core.state import EngineConfig, init_state
-from lqr_tpu_torch.ops import carve_resident, dp_cuda
+from lqr_tpu_torch.ops import _build, carve_resident, dp_cuda
 
 torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
 
 
-def _load_smoke():
-    """chip_smoke.py (at the repository's root) as a module."""
+def _load_script(rel: str):
+    """A script of the repository (a path from its root) as a module."""
     import importlib.util
     import pathlib
-    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    return smoke
+    path = pathlib.Path(__file__).resolve().parent.parent / rel
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
-SMOKE = _load_smoke()
+SMOKE = _load_script("chip_smoke.py")
 
 
 @pytest.fixture
@@ -176,16 +176,58 @@ def test_dp_block_matches_plain(cuda, dx, has_rig, first):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def test_dp_block_refuses_wide_slab(cuda):
-    """A slab whose two frontier rows exceed the shared memory is refused
-    before any launch."""
+@pytest.mark.parametrize("first,dx,has_rig", [(False, 1, False),
+                                              (True, 2, True)])
+def test_dp_block_wide_slab_matches_plain(cuda, first, dx, has_rig):
+    """A slab whose two frontier rows exceed the shared memory (We = 30 001
+    lanes) keeps them in a global scratch: bit-exact, one launch."""
     from lqr_tpu_torch.ops import dp_block
-    e, _ = _case(3, 2, 32768, 32768, False, cuda)
-    before = dict(dp_cuda.LAUNCHES)
-    with pytest.raises(ValueError, match="shared memory"):
-        dp_block.dp_block(e[0].contiguous(), e, None, True, False, 1, False,
-                          2048)
-    assert dp_cuda.LAUNCHES == before
+    R, We = 12, 30001
+    assert 2 * We * 4 > dp_cuda.smem_optin(cuda)
+    e, rig = _case(3 + dx, R, We - 7, We, has_rig, cuda)
+    m0 = e[-1].flip(0).contiguous()
+    for pref in (True, False):
+        before = dp_cuda.LAUNCHES["dp_block"]
+        got = dp_block.dp_block(m0, e, rig, pref, first, dx, has_rig, 2048)
+        want = dp_block.dp_block_plain(m0, e, rig, pref, first, dx, has_rig,
+                                       2048)
+        torch.cuda.synchronize()
+        assert dp_cuda.LAUNCHES["dp_block"] == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("case", SMOKE.RESIDENT_EDGES)
+def test_resident_edges_match_plain(cuda, case):
+    """Tolerance 0 on hist rows < kc and every plane at the resident
+    kernel's edges (chip_smoke.RESIDENT_EDGES: Wb % 4 != 0, Wb < 32, H = 1,
+    H - 1 not a multiple of K, delta_x 0, 3 and 10, ties, unaligned
+    planes): the solo entry, and the batched entry with ragged heights."""
+    assert SMOKE.check_resident_edges(cuda, [case]) == 0.0
+
+
+def test_resident_phases_build_matches_plain(cuda):
+    """tools/resident_phases.py's build (-DLQR_RESIDENT_PHASES) carves as the
+    plain version does and times every phase of its seams; the library
+    load() gives is back after _build.using."""
+    phases = _load_script("tools/resident_phases.py")
+    lib = phases.load_phases()
+    case = (70, 640, 640, 12, 1, 0, True, "ties")
+    H, Wb, w0, kc, dx, nrg, masks, _ = case
+    b, bias, rig, pm = SMOKE.resident_edge(case, cuda)
+    args = (b, bias, rig, pm, w0, 5, kc, dx, masks, masks, nrg, 1, engine.KC)
+    default = _build.load()
+    with _build.using(lib):
+        assert _build.load() is lib
+        ms, per = phases.measure(
+            lib, lambda: carve_resident.carve_chunk_resident(*args), kc)
+        got = carve_resident.carve_chunk_resident(*args)
+    assert _build.load() is default
+    want = carve_resident.carve_chunk_resident_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert len(per) == len(phases.PHASES) and min(per) >= 0 and per[1] > 0
+    assert sum(per) <= 1.25 * 1e3 * ms / kc
 
 
 def test_resident_batched_matches_plain(cuda):

@@ -145,9 +145,16 @@ def test_gate():
     assert tcr.resident_ok(384, 512, False, False)
     assert tcr.resident_bytes(768, 1024, True, True) == 13369344
     assert tcr.resident_ok(768, 1024, True, True)
-    # the 2048^2 main path keeps the per-seam route
+    # the 2048^2 main path, the largest map measured, takes the resident
+    # route; one column more, with bias and rigidity (71 MB of planes), or
+    # larger, the per-seam route
     assert tcr.resident_bytes(2048, 2048, False, False) == 37748736
-    assert not tcr.resident_ok(2048, 2048, False, False)
+    assert tcr.resident_bytes(2048, 2048, False, False) == tcr.RESIDENT_BUDGET
+    assert tcr.resident_ok(2048, 2048, False, False)
+    assert not tcr.resident_ok(2048, 2049, False, False)
+    assert tcr.resident_bytes(2048, 2048, True, True) == 71303168
+    assert not tcr.resident_ok(2048, 2048, True, True)
+    assert not tcr.resident_ok(2048, 2560, False, False)
     assert not tcr.resident_ok(16, tcr.MAX_WB + 128, False, False)
     assert tcr.resident_ok(16, 384, False, False)
 

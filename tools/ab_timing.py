@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """The end-to-end timings of chip_smoke.py phase 5 for the checkout at ROOT.
 
-    python3 tools/ab_timing.py ROOT LABEL
+    python3 tools/ab_timing.py ROOT LABEL [--kernels]
 
 Imports ROOT's chip_smoke.py and ROOT's lqr_tpu_torch, builds its kernels,
-and times what phase 5 times: 100 seams at 2048x2048 through extend_map and
-through both modes of the fused step, both extend_map routes at 1024x768
-with masks and at 512x384, BatchCarver.carve on cfg5 and one cfg4 wave, and
-the column-sharded 2048x2048. Each line is prefixed with LABEL. To compare two
+and times what phase 5 times: 100 seams at 2048x2048 through both
+extend_map routes and through both modes of the fused step, both routes
+at 1024x768 with masks and at 512x384, BatchCarver.carve on cfg5 and one
+cfg4 wave, and the column-sharded 2048x2048. With --kernels it times
+instead the DP and backtrack kernels alone (CUDA events, the mean of 50
+launches) at the shapes their routes give them: 2048x2048, 1024x768 with
+rigidity, 512x384. Each line is prefixed with LABEL. To compare two
 commits on one card, unpack the other with ``git archive`` and run both in
 turns in one call, one process each: parent, change, change, parent.
 """
@@ -16,6 +19,27 @@ from __future__ import annotations
 
 import pathlib
 import sys
+
+
+def time_kernels(smoke, dev, label: str) -> None:
+    """The DP and backtrack kernels of ROOT, each shape in turn."""
+    import torch
+    from lqr_tpu_torch.core.energy import energy_from_plane, reader_plane
+    from lqr_tpu_torch.ops import dp_cuda
+
+    for (h, w), has_rig in (((smoke.N, smoke.N), False), (smoke.CFG2, True),
+                            (smoke.CFG1, False)):
+        img = torch.from_numpy(smoke.crop_image((h, w))).to(dev)
+        e = energy_from_plane(reader_plane(img, 0), w, 0)
+        rig = (torch.from_numpy(smoke.cfg2_inputs()["rig"]).to(dev)
+               if has_rig else None)
+        M, bp = dp_cuda.dp_forward(e, rig, True, 1, has_rig)
+        fwd = smoke._cuda_ms(
+            lambda: dp_cuda.dp_forward(e, rig, True, 1, has_rig), 50)
+        bt = smoke._cuda_ms(lambda: dp_cuda.backtrack(M, bp, True), 50)
+        print(f"[{label}] {w}x{h} rig={has_rig}: dp_forward {fwd:.4f} ms, "
+              f"backtrack {bt:.4f} ms on {torch.cuda.get_device_name(0)}",
+              flush=True)
 
 
 def main(argv: list[str]) -> int:
@@ -36,10 +60,13 @@ def main(argv: list[str]) -> int:
     smoke.say = lambda phase, msg: print(f"[{label}] {msg}", flush=True)
     dev = torch.device("cuda", 0)
     gpu = torch.cuda.get_device_name(0)
+    if argv[2:] == ["--kernels"]:
+        time_kernels(smoke, dev, label)
+        return 0
     N, seams = smoke.N, smoke.SEAMS
     smoke.time_routes(dev, f"{N}x{N}", (N, N),
-                      [engine.extend_map, smoke.fused_split,
-                       smoke.fused_inline], seams, gpu)
+                      [engine._extend_per_seam, engine._extend_resident,
+                       smoke.fused_split, smoke.fused_inline], seams, gpu)
     routes = [engine._extend_resident, engine._extend_per_seam]
     c2 = smoke.cfg2_inputs()
     smoke.time_routes(dev, "1024x768 with bias and rig", smoke.CFG2, routes,

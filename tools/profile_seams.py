@@ -3,10 +3,11 @@
 
     python3 tools/profile_seams.py [N] [SEAMS]
 
-Runs the three N x N seam loops that chip_smoke.py phase 5 times (default
-2048^2, 20 seams): extend_map's per-seam route, the fused step with the
-energy in torch ops and the DP kernel, and the fused step with the energy
-inline; each once to warm up and once under torch.profiler. Prints per loop
+Runs the N x N seam loops that chip_smoke.py phase 5 times (default
+2048^2, 20 seams): extend_map's per-seam and resident routes, the fused
+step with the energy in torch ops and the DP kernel, and the fused step
+with the energy inline; each once to warm up and once under
+torch.profiler. Prints per loop
 its wall time, the device's busy share (the kernels' summed device time
 over the wall time: one stream, so they do not overlap) and the device time
 of its largest kernels. Needs a CUDA device.
@@ -40,7 +41,8 @@ def main(argv: list[str]) -> int:
     cfg = EngineConfig(H=n, Wb=n, C=3)
     img = smoke.make_test_image(n)
     print(torch.cuda.get_device_name(0), flush=True)
-    for route in (engine.extend_map, smoke.fused_split, smoke.fused_inline):
+    for route in (engine._extend_per_seam, engine._extend_resident,
+                  smoke.fused_split, smoke.fused_inline):
         route(cfg, init_state(cfg, img, device=dev), seams)        # warm-up
         st = init_state(cfg, img, device=dev)
         torch.cuda.synchronize()

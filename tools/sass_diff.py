@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
 """Compare the SASS of the port's CUDA sources between two checkouts.
 
-    python3 tools/sass_diff.py OTHER_ROOT [SOURCE ...]
+    python3 tools/sass_diff.py [--diff N] OTHER_ROOT [SOURCE ...]
 
 Each SOURCE (default: every source of ``lqr_tpu_torch/ops/_build.SOURCES``
 that OTHER_ROOT also has, e.g. the parent commit unpacked with
 ``git archive``) is compiled from this checkout and from OTHER_ROOT with the
 package's nvcc flags into a cubin and disassembled with ``cuobjdump -sass``.
 Addresses and encodings are dropped; per kernel the script prints the
-instruction count in each tree and whether the two listings are identical.
+instruction count in each tree and whether the two listings are identical,
+the same instructions with other register numbers ("registers renamed"),
+or different;
+with --diff N, the first N lines of a unified diff of each kernel that
+differs.
 Exits 1 when any kernel differs. Needs the CUDA toolkit (nvcc, cuobjdump).
 """
 
 from __future__ import annotations
 
+import difflib
 import pathlib
 import re
 import subprocess
@@ -28,6 +33,7 @@ from lqr_tpu_torch.ops import _build  # noqa: E402
 _COMMENT = re.compile(r"/\*.*?\*/")
 # an anonymous namespace's mangled name carries a hash of the file's path
 _ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_")
+_REG = re.compile(r"\bU?[RP]\d+\b")
 
 
 def sass(src: pathlib.Path, out: pathlib.Path) -> dict[str, list[str]]:
@@ -52,6 +58,9 @@ def sass(src: pathlib.Path, out: pathlib.Path) -> dict[str, list[str]]:
 
 
 def main(argv: list[str]) -> int:
+    show = 0
+    if argv[:1] == ["--diff"]:
+        show, argv = int(argv[1]), argv[2:]
     other = pathlib.Path(argv[0]).resolve()
     rels = argv[1:] or [str(s.relative_to(ROOT)) for s in _build.SOURCES
                         if (other / s.relative_to(ROOT)).exists()]
@@ -63,10 +72,18 @@ def main(argv: list[str]) -> int:
             for name in sorted(set(here) | set(there)):
                 a, b = here.get(name), there.get(name)
                 eq = a == b
+                renamed = not eq and a is not None and b is not None and [
+                    _REG.sub("R", i) for i in a] == [_REG.sub("R", i)
+                                                      for i in b]
+                verdict = ("identical" if eq else "registers renamed"
+                           if renamed else "DIFFERENT")
                 same &= eq
                 print(f"{rel} {name}: {len(a or [])} instructions here, "
-                      f"{len(b or [])} there: "
-                      f"{'identical' if eq else 'DIFFERENT'}")
+                      f"{len(b or [])} there: {verdict}")
+                if show and not eq and a and b:
+                    lines = list(difflib.unified_diff(b, a, "there", "here",
+                                                      n=0, lineterm=""))
+                    print("\n".join(lines[2:2 + show]))
     return 0 if same else 1
 
 
