@@ -31,10 +31,19 @@ Phases, one line each (any failure exits non-zero):
              360x640 (per-map width, seam count, one of them 0, and true
              height), three at 480x640 and two at 1024x1024; and timed at
              the cfg4 wave's shape (256 maps of 1024x1024, 8 seams).
-             dp_block: R=32 rows at the
-             2048^2 shard width on four shards (512 + 2*32*delta_x), delta_x
-             1 and 2, rigidity on and off, `first` on and off, and a slab
-             of 30001 lanes (its frontier in global scratch). The fused
+             dp_block: R=32 rows over a shard of 512 columns extended by
+             32*delta_x lanes each side (the card's shard of the
+             distinct-device mesh below, timed there), delta_x 1 and 2,
+             rigidity on and off, `first` on and off, and a slab of 30001
+             lanes (its frontier in global scratch). dp_sharded (the
+             column-sharded DP of one seam, one cluster launch for all
+             shards) against the per-block loop with dp_block's plain
+             version (SHARDED_CASES): 2048x2048 on 4 shards (the sharded
+             path's own shape, timed there), delta_x 1 and 2, rigidity on
+             and off, both sides; 2 and 8 shards; 2 shards of 30016
+             columns (frontiers in device scratch, several strips a warp);
+             its own columns against dp_forward; and the bytes that cross
+             shards per seam. The fused
              seam step's two kernels: dp_energy_forward at 2048x2048
              (delta_x=1, both side preferences; delta_x=2 with rigidity), at
              cfg2 with bias and rigidity under GRAD_XABS, GRAD_NORM and
@@ -53,9 +62,12 @@ Phases, one line each (any failure exits non-zero):
              640x360, GAP's keyframed 0..160 seams) and one cfg4 wave (256
              images of 1024x1024, 256 seams each) on the batched resident
              kernel; a ragged BatchCarver of 8 images with masks and an
-             RGBA aux image; and the column-sharded BatchCarver, 2048x2048
-             on 4 column shards of the one card, 100 seams (dp_block and the
-             backtrack kernel). Each visibility map must equal the C++
+             RGBA aux image; the column-sharded BatchCarver, 2048x2048
+             on 4 column shards of the one card, 100 seams (dp_sharded and
+             the backtrack kernel); and the column-sharded BatchCarver on a
+             mesh of distinct devices (the card and the CPU), 1024x384 on 2
+             shards, 20 seams (dp_block on the card's shard, its plain
+             version on the CPU's). Each visibility map must equal the C++
              reference carver's bit for bit, each image (and aux image) its
              materialization u8 for u8. Then the fused seam step
              (ops.carve_step, one step per seam on the compacted planes,
@@ -97,6 +109,7 @@ CFG5 = (360, 640, 300, 160)   # (h, w) of a GAP frame, frames, last seams
 CFG4 = (1024, 1024, 256, 256)  # (h, w), images in one wave, seams each
 CFG4_KC = 8           # seams of phase 3's batched launch at the cfg4 shape
 SHARDS = 4            # column shards of the one card
+DISTINCT = (384, 1024)  # (h, w) on the card and the CPU, 2 column shards
 # the ragged batch: (h, w, seams) of each image
 RAGGED = ((360, 640, 60), (300, 512, 40), (480, 600, 100), (200, 384, 30),
           (360, 560, 90), (240, 320, 50), (480, 640, 80), (128, 256, 20))
@@ -876,13 +889,14 @@ def time_routes(device, label, hw, routes, seams, gpu, bias=None,
 
 
 def check_dp_block(device) -> dict:
-    """Phase 3: dp_block against its plain version at the column-sharded
-    2048^2 path's shape: R = 32 rows over a shard of 512 columns extended
-    by G = 32 * delta_x lanes each side, +inf at one mesh edge."""
+    """Phase 3: dp_block against its plain version at the shape of the
+    card's shard of run_sharded_distinct's mesh (DISTINCT): R = 32 rows
+    over a shard of 512 columns extended by G = 32 * delta_x lanes each
+    side, +inf at one mesh edge, timed there at delta_x 1."""
     import torch
     from lqr_tpu_torch.ops import dp_block as db
 
-    R, Wl = 32, N // SHARDS
+    R, Wl = 32, DISTINCT[1] // 2
     err, seed = 0.0, 40
     for dx in (1, 2):
         G = R * dx
@@ -933,8 +947,143 @@ def check_dp_block(device) -> dict:
                   50)
     plain_ms = _cuda_ms(lambda: db.dp_block_plain(m0, e, None, True, False,
                                                   1, False, N), 3)
-    say("kernels", f"dp_block R={R} We={Wl + 2 * G} delta_x=1: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+    say("kernels", f"dp_block R={R} We={Wl + 2 * G} delta_x=1 (the card's "
+        f"shard of the {DISTINCT[1]}x{DISTINCT[0]} distinct-device mesh): "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+# The one-launch column-sharded DP's cases: (shards, H, W, delta_x,
+# has_rig); the first is the 2048^2 path's own shape; the last two shards
+# of 30016 columns, whose frontier rows do not fit the shared memory
+SHARDED_CASES = [(SHARDS, N, N, 1, False), (SHARDS, N, N, 1, True),
+                 (SHARDS, N, N, 2, False), (SHARDS, N, N, 2, True),
+                 (2, N, N, 1, True), (8, N, N, 2, False),
+                 (2, 256, 60032, 1, True)]
+# small shapes for the CUDA tests: delta_x 0 and 3 (windows reloaded
+# between exchanges), an odd shard width (own columns that straddle a
+# lane's 8), one shard, H not a multiple of 32, more strips than warps
+# (several a warp), and frontier rows in device scratch (16-byte copies,
+# and an odd width with 4-byte ones)
+SHARDED_EDGES = [(2, 48, 400, 0, False), (8, 48, 400, 2, True),
+                 (2, 64, 400, 3, True), (3, 40, 303, 1, True),
+                 (1, 32, 100, 1, False), (4, 24, 1000, 1, False),
+                 (2, 16, 8192, 1, False), (2, 32, 60000, 2, True),
+                 (2, 16, 59998, 1, False)]
+
+
+def _sharded_inputs(case, device, seed):
+    """(e_loc, rig_loc, R, e, rig) of a SHARDED_CASES case: random quantized
+    planes (ties on purpose) split over its shards."""
+    from lqr_tpu_torch.parallel.sharding import _block_rows
+    n, H, W, dx, has_rig = case
+    e, rig = _random_case(H, W, W, dx, has_rig, seed, device)
+    Wl = W // n
+    e_loc = [e[:, c * Wl:(c + 1) * Wl].contiguous() for c in range(n)]
+    rig_loc = ([rig[:, c * Wl:(c + 1) * Wl].contiguous() for c in range(n)]
+               if has_rig else None)
+    return e_loc, rig_loc, _block_rows(H, dx, Wl), e, rig
+
+
+def check_sharded_case(device, case, seed: int = 0,
+                       own_vs_forward: bool = False) -> float:
+    """dp_sharded against its plain version, both side preferences,
+    tolerance 0 on every shard's M_last and bp; with own_vs_forward, the
+    own columns against the unsharded dp_forward kernel too. Returns the
+    largest error (0.0) or raises."""
+    import torch
+    from lqr_tpu_torch.ops import dp_block as db
+    from lqr_tpu_torch.ops import dp_cuda
+
+    n, H, W, dx, has_rig = case
+    e_loc, rig_loc, R, e, rig = _sharded_inputs(case, device, seed)
+    geo = db.sharded_geometry(W // n, dx, R, has_rig,
+                              dp_cuda.smem_optin(device))
+    err = 0.0
+    for pref in (True, False):
+        want = db.dp_sharded_plain(e_loc, rig_loc, pref, dx, has_rig, H, R)
+        before = dp_cuda.LAUNCHES["dp_sharded"]
+        got = db.dp_sharded(e_loc, rig_loc, pref, dx, has_rig, H, R)
+        torch.cuda.synchronize()
+        if dp_cuda.LAUNCHES["dp_sharded"] != before + 1:
+            raise AssertionError("dp_sharded did not count one launch")
+        e_s = max(_max_err(g, w) for g, w in zip(got[0] + got[1],
+                                                 want[0] + want[1]))
+        err = max(err, e_s)
+        if e_s != 0.0:
+            raise AssertionError(f"dp_sharded differs from plain: {case} "
+                                 f"pref_left={pref}")
+        if own_vs_forward:
+            M_f, bp_f = dp_cuda.dp_forward(e, rig, pref, dx, has_rig)
+            torch.cuda.synchronize()
+            e_f = max(_max_err(torch.cat(got[0]), M_f),
+                      _max_err(torch.cat(got[1], dim=1), bp_f))
+            if e_f != 0.0:
+                raise AssertionError(f"dp_sharded's own columns differ from "
+                                     f"dp_forward: {case} pref_left={pref}")
+    say("kernels", f"dp_sharded {n} shards H={H} W={W} delta_x={dx} "
+        f"rig={has_rig} R={R} geometry (K, Gi, S, warps, global "
+        f"frontier) {geo}, both sides: max_abs_err={err} (tolerance 0)"
+        + (", own columns == dp_forward's" if own_vs_forward else ""))
+    return err
+
+
+def sharded_exchange_bytes(n: int, H: int, W: int, delta_x: int,
+                           has_rig: bool) -> int:
+    """Bytes that cross shards in one seam's DP: every R rows each of the
+    n - 1 boundaries carries, both ways, G frontier values and an [R, G]
+    energy (and rigidity) slab, f32."""
+    from lqr_tpu_torch.parallel.sharding import _block_rows
+    if n < 2 or delta_x == 0:
+        return 0
+    R = _block_rows(H, delta_x, W // n)
+    G = R * delta_x
+    per = 4 * (G + R * G * (2 if has_rig else 1))
+    return (H // R) * (n - 1) * 2 * per
+
+
+def check_dp_sharded(device) -> dict:
+    """Phase 3: dp_sharded against its plain version at SHARDED_CASES (the
+    own columns against dp_forward at the path's shape), then timed at
+    the 2048^2 path's shape beside the per-block loop on the dp_block
+    kernel (the route it replaces) and the plain loop, and at the wide
+    case."""
+    from lqr_tpu_torch.ops import dp_block as db
+    from lqr_tpu_torch.ops import dp_cuda
+
+    err = 0.0
+    for i, case in enumerate(SHARDED_CASES):
+        err = max(err, check_sharded_case(device, case, seed=70 + i,
+                                          own_vs_forward=i < 4))
+    case = SHARDED_CASES[0]
+    n, H, W, dx, has_rig = case
+    e_loc, _, R, _, _ = _sharded_inputs(case, device, 90)
+    ms = _cuda_ms(lambda: db.dp_sharded(e_loc, None, True, dx, False, H, R),
+                  20)
+    devs = [device] * n
+    blocks_ms = _cuda_ms(lambda: db.dp_blocked(e_loc, None, True, dx, False,
+                                               H, R, devs), 2)
+    plain_ms = _cuda_ms(lambda: db.dp_sharded_plain(e_loc, None, True, dx,
+                                                    False, H, R), 1)
+    geo = db.sharded_geometry(W // n, dx, R, False,
+                              dp_cuda.smem_optin(device))
+    say("kernels", f"dp_sharded at {W}x{H} on {n} shards (delta_x={dx}, "
+        f"R={R}, geometry {geo}): {ms:.4f} ms ({ms * 1e3 / H:.4f} us/row); "
+        f"the per-block loop on the dp_block kernel ({H // R * n} launches) "
+        f"{blocks_ms:.4f} ms, the plain loop {plain_ms:.4f} ms")
+    wide = SHARDED_CASES[-1]
+    e_w, rig_w, R_w, _, _ = _sharded_inputs(wide, device, 91)
+    ms_w = _cuda_ms(lambda: db.dp_sharded(e_w, rig_w, True, wide[3], True,
+                                          wide[1], R_w), 20)
+    geo_w = db.sharded_geometry(wide[2] // wide[0], wide[3], R_w, True,
+                                dp_cuda.smem_optin(device))
+    say("kernels", f"dp_sharded at {wide[2]}x{wide[1]} on {wide[0]} shards "
+        f"(delta_x={wide[3]}, rig, R={R_w}, geometry {geo_w}): {ms_w:.4f} "
+        f"ms ({ms_w * 1e3 / wide[1]:.4f} us/row)")
+    for c in SHARDED_CASES:
+        say("kernels", f"bytes crossing shards per seam's DP, {c[0]} shards "
+            f"{c[2]}x{c[1]} delta_x={c[3]} rig={c[4]}: "
+            f"{sharded_exchange_bytes(c[0], c[1], c[2], c[3], c[4])}")
     return {"err": err, "ms": ms, "plain_ms": plain_ms}
 
 
@@ -1069,7 +1218,7 @@ def kernel_bounds(n: int) -> dict:
     # the batched entry's timed batch: (h, w, seams) per map, delta_x 2,
     # bias and rig, padded to 360 x 640 (check_resident_batched)
     batch = ((360, 640, 32), (300, 600, 0), (200, 500, 20), (360, 620, 25))
-    R, We = 32, n // SHARDS + 2 * 32
+    R, We = 32, DISTINCT[1] // 2 + 2 * 32
     c4_h, c4_w, c4_B, _ = CFG4
     per_res = _energy_ops(0, True) + _dp_ops(1, True)
     per_bat = _energy_ops(0, True) + _dp_ops(2, True)
@@ -1095,8 +1244,15 @@ def kernel_bounds(n: int) -> dict:
             c4_B * (2 * 2 * 4 * c4_h * c4_w + 4 * CFG4_KC * c4_h),
             c4_B * c4_h * (_energy_ops(0, False) + _dp_ops(1, False))
             * sum(c4_w - j for j in range(CFG4_KC))),
+        # the card's shard of the distinct-device mesh, one block of rows
         "dp_block": _bound(4 * R * We + 2 * 4 * We + R * We,
                            R * We * _dp_ops(1, False)),
+        # the 2048^2 path's seam on SHARDS shards: E read once, bp and
+        # M_last written once, the operations of the own cells (the halo
+        # slabs are columns of the same E; the frontiers cross in shared
+        # memory)
+        "dp_sharded": _bound(4 * H * W + H * W + 4 * W,
+                             H * W * _dp_ops(1, False)),
         "dp_energy_forward": _bound(
             4 * H * W + 4 * W + H * W,
             H * W * (_energy_ops(0, False) + _dp_ops(1, False))),
@@ -1287,14 +1443,50 @@ def run_sharded(device, vs_main) -> dict:
     launches = _launches()
     R = _block_rows(N, 1, N // SHARDS)
     _expect_launches("sharded", launches,
-                     _only(dp_block=SEAMS * (N // R) * SHARDS,
-                           backtrack=SEAMS))
+                     _only(dp_sharded=SEAMS, backtrack=SEAMS))
     _check_carve("sharded", img, bc.state.vs[0, :, :N].cpu().numpy(),
                  bc.images_at(N - SEAMS)[0], vs_main, N - SEAMS)
     say("slice", f"column-sharded BatchCarver, {N}x{N} on {SHARDS} column "
         f"shards of {device}, {SEAMS} seams ({R} rows per halo exchange): "
         f"vs == the unsharded Carver's == native.carve, image == "
         f"native.materialize; launches {launches}")
+    return launches
+
+
+def run_sharded_distinct(device) -> dict:
+    """Phase 4: the column-sharded resize on a mesh of distinct devices,
+    the card and the CPU: 1024x384 on 2 column shards (the card's slab
+    check_dp_block's shape), 20 seams. The DP
+    takes the per-block loop (dp_block on the card's shard, its plain
+    version on the CPU's) with the halos copied between the two; vs equal
+    to native.carve and the image to native.materialize."""
+    import torch
+    from lqr_tpu_torch import native
+    from lqr_tpu_torch.parallel import BatchCarver, make_mesh
+    from lqr_tpu_torch.parallel.sharding import _block_rows, dp_route
+
+    h, w = DISTINCT
+    seams = 20
+    img = crop_image(DISTINCT)
+    mesh = make_mesh(devices=[device, "cpu"], data=1)
+    if dp_route(mesh.devices[0]) != "blocks":
+        raise AssertionError("a mesh of distinct devices took the cluster")
+    bc = BatchCarver([img], mesh=mesh)
+    reset_launches()
+    bc.carve(seams)
+    torch.cuda.synchronize()
+    launches = _launches()
+    R = _block_rows(h, 1, w // 2)
+    _expect_launches("sharded distinct", launches,
+                     _only(dp_block=seams * (h // R), backtrack=seams))
+    _check_carve("sharded distinct", img,
+                 bc.state.vs[0, :, :w].cpu().numpy(),
+                 bc.images_at(w - seams)[0], native.carve(img, seams),
+                 w - seams)
+    say("slice", f"column-sharded BatchCarver, {w}x{h} on 2 column shards "
+        f"({device} and cpu), {seams} seams ({R} rows per halo exchange): "
+        f"vs == native.carve, image == native.materialize; launches "
+        f"{launches}")
     return launches
 
 
@@ -1350,7 +1542,8 @@ def main() -> int:
     k = check_kernels(device, N)
     for kname, check in (("carve_resident", check_resident),
                          ("carve_resident_batched", check_resident_batched),
-                         ("dp_block", check_dp_block)):
+                         ("dp_block", check_dp_block),
+                         ("dp_sharded", check_dp_sharded)):
         r = check(device)
         for key in ("err", "ms", "plain_ms"):
             k[key][kname] = r[key]
@@ -1373,7 +1566,8 @@ def main() -> int:
     wave = cfg4_inputs()
     run_cfg4(device, wave)
     run_ragged(device)
-    launches["dp_block"] = run_sharded(device, vs_main)["dp_block"]
+    launches["dp_sharded"] = run_sharded(device, vs_main)["dp_sharded"]
+    launches["dp_block"] = run_sharded_distinct(device)["dp_block"]
     fl = run_fused(device, vs_main, vs_cfg2)
     for kname in ("dp_energy_forward", "backtrack_compact"):
         launches[kname] = fl[kname]
@@ -1409,6 +1603,7 @@ def main() -> int:
                 "carve_resident": "lqr_tpu/ops/carve_resident.py:178",
                 "carve_resident_batched": "lqr_tpu/ops/carve_resident.py:178",
                 "dp_block": "lqr_tpu/ops/dp_block.py:44",
+                "dp_sharded": "lqr_tpu/ops/dp_block.py:44",
                 "dp_energy_forward": "lqr_tpu/ops/dp_pallas.py:761",
                 "backtrack_compact": "lqr_tpu/ops/dp_pallas.py:925 and "
                                      "lqr_tpu/ops/dp_pallas.py:1002"}

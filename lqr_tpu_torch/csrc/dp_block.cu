@@ -32,12 +32,14 @@
 // What bounds it on this card: launch and row latency. At the 2048^2
 // shard width on 4 shards (We = 512 + 2 * 32), R = 32 rows are 32 barrier
 // steps of one load and one cell per thread, a few tens of microseconds,
-// on one SM; the sharded loop launches one block per (shard, row block,
-// image), so the host's launch rate bounds the resize before the kernel
-// does. What the design does about it: nothing yet. A later change would
-// run all of a seam's row blocks for every shard in one persistent launch
-// (one block per shard, halos through global memory and a grid-wide
-// barrier per block of rows), or batch the images of a mesh row per launch.
+// on one SM; a loop that launches one block per (shard, row block, image)
+// is bound by the host's launch rate before the kernel. Where it runs:
+// on meshes whose column shards lie on distinct devices, or number more
+// than a cluster's 8 on one (parallel/sharding.py:dp_route), one launch
+// per block of rows and shard: the form that crosses devices. Up to 8
+// shards that share one CUDA device take dp_sharded.cu instead: one
+// cluster launch a seam over every shard and row block, the halos through
+// distributed shared memory.
 
 #include <cuda_runtime.h>
 #include <math.h>

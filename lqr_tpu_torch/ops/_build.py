@@ -24,7 +24,7 @@ BUILD = _PKG / "build"
 SO = BUILD / "liblqr_kernels.so"
 SOURCES = (CSRC / "dp_forward.cu", CSRC / "backtrack.cu",
            CSRC / "carve_resident.cu", CSRC / "dp_block.cu",
-           CSRC / "carve_step.cu")
+           CSRC / "carve_step.cu", CSRC / "dp_sharded.cu")
 HEADERS = (CSRC / "seam_dp.cuh", CSRC / "energy.cuh",
            CSRC / "strip_dp.cuh", CSRC / "strip_sweep.inc",
            CSRC / "chase.cuh")
@@ -127,6 +127,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lqr_carve_resident_batched.argtypes = [p] * 10 + [i] * 14 + [p]
     lib.lqr_dp_block.restype = i
     lib.lqr_dp_block.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p, p]
+    lib.lqr_dp_sharded.restype = i
+    lib.lqr_dp_sharded.argtypes = [p] * 3 + [i] * 10 + [p] * 4
     lib.lqr_dp_energy_forward.restype = i
     lib.lqr_dp_energy_forward.argtypes = [p] * 4 + [i] * 6 + [p] * 3
     lib.lqr_backtrack_compact.restype = i

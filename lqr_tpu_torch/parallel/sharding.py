@@ -7,7 +7,8 @@ controller, the way ``shard_map`` runs it:
   appear more than once: four column shards on one GPU run the column-
   sharded path on a one-GPU machine, eight CPU shards run it in the tests.
 - A sharded state (``ShardedState``) keeps each shard as its own tensors on
-  its device. Every exchange is an explicit copy to the neighbour's device;
+  its device. Every exchange is an explicit copy to the neighbour's device
+  (but the DP's halos on one CUDA device, below);
   the gathers (the frontier and backpointers for the backtrack, the row
   counts for the commit) are a ``torch.cat`` onto one device.
 
@@ -18,16 +19,27 @@ Axis ``cols`` splits image columns. The DP's rows are sequential and its
 columns parallel, so shards exchange halos once per block of R rows: to
 compute R rows exactly in its own Wl columns a shard needs G = R·delta_x
 frontier values and an [R, G] energy (and rigidity) slab of each neighbour,
-sent as one packed copy per neighbour per block, and recomputes the
-shrinking cone of the halo itself (``dp_block``). Values outside the exact
-cone are upper bounds that never reach the shard's own columns, so the
-seams equal the unsharded DP's bit for bit. At the mesh's edges the halo
-is +inf frontier and energy with zero rigidity (a +inf rigidity would
+and recomputes the shrinking cone of the halo itself. Values outside the
+exact cone are upper bounds that never reach the shard's own columns, so
+the seams equal the unsharded DP's bit for bit. At the mesh's edges the
+halo is +inf frontier and energy with zero rigidity (a +inf rigidity would
 poison e + rig·rigc in the cone).
 
-On CUDA tensors each shard's block of rows runs on the ``dp_block`` kernel
-(``csrc/dp_block.cu``) and the backtrack of the gathered map on the
-backtrack kernel; on CPU tensors their plain versions run.
+Which kernel runs the DP is a rule of placement (``dp_route``), the same
+for every seam:
+
+- every shard of the mesh row on one CUDA device, at most 8 of them: one
+  launch of ``dp_sharded`` (``csrc/dp_sharded.cu``) a seam, a thread-block
+  cluster of one block per shard with the halos read from the neighbours'
+  shared memory and planes, at any shard width;
+- shards on distinct devices, or more than 8 on one device (more blocks
+  than a cluster holds): ``dp_blocked``, one ``dp_block`` launch
+  (``csrc/dp_block.cu``) per block of rows and shard, the halos sent as one
+  packed copy per neighbour per block, the only form that crosses devices;
+- CPU shards: ``dp_blocked`` with the plain version of ``dp_block``.
+
+The backtrack of the gathered map runs on the backtrack kernel on CUDA
+tensors and on its plain version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -46,11 +58,11 @@ from ..core.state import EngineConfig, MapState
 from ..errors import LqrConfigError, LqrImageError
 from ..i18n import _
 from ..ops import dp_cuda
-from ..ops.dp_block import dp_block
+from ..ops.dp_block import MAX_SHARDS, dp_blocked, dp_sharded
 
 __all__ = ["Mesh", "ShardedState", "make_mesh", "shard_batch_state",
            "gather_state", "map_data_shards", "find_seam_sharded",
-           "extend_map_sharded", "sharded_seam_step"]
+           "extend_map_sharded", "sharded_seam_step", "dp_route"]
 
 INF = float("inf")
 
@@ -195,59 +207,31 @@ def _block_rows(H: int, delta_x: int, Wl: int) -> int:
     return 1
 
 
+def dp_route(devices) -> str:
+    """Where a mesh row's column-sharded DP runs, by the placement of its
+    shards: "cluster" when every shard lies on one CUDA device and they
+    number at most MAX_SHARDS (one dp_sharded launch a seam, a cluster
+    block a shard, the halos through distributed shared memory), else
+    "blocks" (the per-block loop dp_blocked: one dp_block call per block of
+    rows and shard, the halos as copies between the shards' devices; CPU
+    shards run its plain version)."""
+    devs = {torch.device(d) for d in devices}
+    if (len(devs) == 1 and next(iter(devs)).type == "cuda"
+            and len(devices) <= MAX_SHARDS):
+        return "cluster"
+    return "blocks"
+
+
 def _dp_local_blocked(e_loc, rig_loc, pref_left: bool, delta_x: int,
                       has_rig: bool, H: int, R: int, devices):
-    """The column-sharded forward DP. e_loc / rig_loc: per-shard [H, Wl]
-    tensors (rig_loc None without rigidity), shard c on devices[c].
-    Returns (per-shard M_last [Wl], per-shard bp [H, Wl] int8)."""
-    n = len(e_loc)
-    Wl = e_loc[0].shape[-1]
-    G = max(R * delta_x, 1)      # halo width (>= 1 keeps shapes non-empty)
-    exchange = n > 1 and delta_x > 0
-    inf_f = [torch.full((G,), INF, device=dv) for dv in devices]
-    inf_e = [torch.full((R, G), INF, device=dv) for dv in devices]
-    zero_r = [torch.zeros((R, G), device=dv) for dv in devices]
-    M = [torch.full((Wl,), INF, device=dv) for dv in devices]
-    bps = [[] for _ in range(n)]
-
-    for blk in range(H // R):
-        rows = slice(blk * R, (blk + 1) * R)
-        e_blk = [e[rows] for e in e_loc]
-        r_blk = [r[rows] for r in rig_loc] if has_rig else None
-
-        def pack(c, sl):
-            """The [1 + R (+ R), G] plane one shard sends one neighbour:
-            frontier, energy slab and rigidity slab in one copy."""
-            parts = [M[c][None, sl], e_blk[c][:, sl]]
-            if has_rig:
-                parts.append(r_blk[c][:, sl])
-            return torch.cat(parts, dim=0)
-
-        if exchange:   # every shard sends before any frontier moves on
-            to_right = [pack(c, slice(Wl - G, Wl)) for c in range(n - 1)]
-            to_left = [None] + [pack(c, slice(0, G)) for c in range(1, n)]
-
-        def unpack(halo, c):
-            if halo is None:
-                return inf_f[c], inf_e[c], zero_r[c]
-            halo = halo.to(devices[c])
-            return (halo[0], halo[1:1 + R],
-                    halo[1 + R:] if has_rig else zero_r[c])
-
-        for c in range(n):
-            fl, el, rl = unpack(to_right[c - 1] if exchange and c > 0
-                                else None, c)
-            fr, er, rr = unpack(to_left[c + 1] if exchange and c < n - 1
-                                else None, c)
-            m_ext = torch.cat([fl, M[c], fr])
-            e_ext = torch.cat([el, e_blk[c], er], dim=1)
-            r_ext = (torch.cat([rl, r_blk[c], rr], dim=1) if has_rig
-                     else None)
-            m_new, bp_ext = dp_block(m_ext, e_ext, r_ext, pref_left,
-                                     blk == 0, delta_x, has_rig, H)
-            M[c] = m_new[G:G + Wl]
-            bps[c].append(bp_ext[:, G:G + Wl])
-    return M, [torch.cat(b, dim=0) for b in bps]
+    """The column-sharded forward DP, placed by dp_route. e_loc / rig_loc:
+    per-shard [H, Wl] tensors (rig_loc None without rigidity), shard c on
+    devices[c]. Returns (per-shard M_last [Wl], per-shard bp [H, Wl]
+    int8)."""
+    if dp_route(devices) == "cluster":
+        return dp_sharded(e_loc, rig_loc, pref_left, delta_x, has_rig, H, R)
+    return dp_blocked(e_loc, rig_loc, pref_left, delta_x, has_rig, H, R,
+                      devices)
 
 
 def _backtrack_gathered(M_loc, bp_loc, pref_left: bool, dev):

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version on the same CUDA inputs, bit-exact (tolerance 0), a refused launch
 that must raise, and the Carver's, BatchCarver's, the column-sharded
-resize's and the fused seam step's CUDA paths against the C++ reference.
+resize's (one device, and distinct devices: the card and the CPU) and the
+fused seam step's CUDA paths against the C++ reference.
 
 Marked ``cuda``; every test skips where CUDA is unavailable. On a machine
 with an NVIDIA GPU (no jax needed, so skip tests/conftest.py):
@@ -196,6 +197,45 @@ def test_dp_block_wide_slab_matches_plain(cuda, first, dx, has_rig):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("case", SMOKE.SHARDED_EDGES)
+def test_dp_sharded_edges_match_plain(cuda, case):
+    """The one-launch column-sharded DP against the per-block loop with
+    dp_block's plain version, tolerance 0, one counted launch each, and its
+    own columns against dp_forward."""
+    assert SMOKE.check_sharded_case(cuda, case, seed=len(case),
+                                    own_vs_forward=True) == 0.0
+
+
+def test_dp_sharded_refuses_a_bad_geometry(cuda):
+    """The launcher refuses a window halo narrower than delta_x * K, a
+    cluster of 9 blocks, R not dividing H and more warps than strips;
+    nothing launches. The wrapper refuses 9 shards with LqrConfigError."""
+    import ctypes
+    from lqr_tpu_torch import LqrConfigError
+    from lqr_tpu_torch.ops import dp_block
+    lib = _build.load()
+    e = torch.zeros((9, 32, 64), device=cuda)
+    ptrs = (ctypes.c_void_p * 9)(*[e[c].data_ptr() for c in range(9)])
+    m = torch.empty((9, 64), device=cuda)
+    bp = torch.empty((9, 32, 64), dtype=torch.int8, device=cuda)
+    rigc = torch.zeros(4, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    before = dict(dp_cuda.LAUNCHES)
+    for n, R, dx, geo in ((2, 16, 3, (1, 16, 32, 192)),
+                          (9, 16, 1, (1, 16, 16, 224)),
+                          (2, 12, 1, (1, 12, 16, 224)),
+                          (2, 16, 1, (2, 16, 16, 224))):
+        rc = lib.lqr_dp_sharded(ptrs, None, rigc.data_ptr(), 1, dx, n, 32,
+                                64, R, *geo, m.data_ptr(), bp.data_ptr(),
+                                None, stream)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            _build.check(lib, rc, "lqr_dp_sharded")
+    with pytest.raises(LqrConfigError, match="shards"):
+        dp_block.dp_sharded(list(e), None, True, 1, False, 32, 16)
+    torch.cuda.synchronize()
+    assert dp_cuda.LAUNCHES == before
+
+
 @pytest.mark.parametrize("case", SMOKE.RESIDENT_EDGES)
 def test_resident_edges_match_plain(cuda, case):
     """Tolerance 0 on hist rows < kc and every plane at the resident
@@ -313,8 +353,8 @@ def test_batch_carver_cuda_matches_native(cuda):
 
 
 def test_column_sharded_cuda_matches_native(cuda):
-    """Four column shards on one card: every block of rows on the dp_block
-    kernel, the seams equal to the C++ reference's."""
+    """Four column shards on one card: one dp_sharded launch a seam (no
+    dp_block launch), the seams equal to the C++ reference's."""
     from lqr_tpu_torch.parallel import BatchCarver, make_mesh
     img = _image(9, 64, 512)
     mesh = make_mesh(devices=[cuda] * 4, data=1)
@@ -322,14 +362,55 @@ def test_column_sharded_cuda_matches_native(cuda):
     assert bc.col_sharded
     before = dict(dp_cuda.LAUNCHES)
     bc.carve(8)
-    # R = 32 rows per block (64 rows: 2 blocks) on each of 4 shards
-    assert dp_cuda.LAUNCHES["dp_block"] == before["dp_block"] + 8 * 2 * 4
+    assert dp_cuda.LAUNCHES["dp_sharded"] == before["dp_sharded"] + 8
+    assert dp_cuda.LAUNCHES["dp_block"] == before["dp_block"]
     assert dp_cuda.LAUNCHES["backtrack"] == before["backtrack"] + 8
     assert dp_cuda.LAUNCHES["dp_forward"] == before["dp_forward"]
     vs = native.carve(img, 8)
     np.testing.assert_array_equal(bc.state.vs[0].cpu().numpy(), vs)
     np.testing.assert_array_equal(bc.images_at(504)[0],
                                   native.materialize(img, vs, 504))
+
+
+def test_column_sharded_wide_cuda_matches_native(cuda):
+    """Two column shards of 30 016 columns on one card: slabs whose
+    frontier rows do not fit the shared memory, so dp_sharded keeps them in
+    device scratch and each warp runs several strips; one launch a seam,
+    the seams equal to the C++ reference's."""
+    from lqr_tpu_torch.ops import dp_block
+    from lqr_tpu_torch.parallel import BatchCarver, make_mesh
+    img = _image(11, 32, 60000)
+    bc = BatchCarver([img], mesh=make_mesh(devices=[cuda] * 2, data=1))
+    Wl = bc.state.vs.shape[-1] // 2
+    assert dp_block.sharded_geometry(Wl, 1, 32, False,
+                                     dp_cuda.smem_optin(cuda))[4]
+    before = dict(dp_cuda.LAUNCHES)
+    bc.carve(3)
+    assert dp_cuda.LAUNCHES["dp_sharded"] == before["dp_sharded"] + 3
+    assert dp_cuda.LAUNCHES["dp_block"] == before["dp_block"]
+    vs = native.carve(img, 3)
+    np.testing.assert_array_equal(bc.state.vs[0, :, :60000].cpu().numpy(),
+                                  vs)
+    np.testing.assert_array_equal(bc.images_at(59997)[0],
+                                  native.materialize(img, vs, 59997))
+
+
+def test_column_sharded_distinct_devices_matches_native(cuda):
+    """Two column shards on distinct devices, the card and the CPU: the
+    per-block loop, dp_block on the card's shard (R = 32 rows: 2 blocks a
+    seam), the halos copied between the two; the seams equal to the C++
+    reference's."""
+    from lqr_tpu_torch.parallel import BatchCarver, make_mesh
+    img = _image(10, 64, 256)
+    bc = BatchCarver([img], mesh=make_mesh(devices=[cuda, "cpu"], data=1))
+    before = dict(dp_cuda.LAUNCHES)
+    bc.carve(6)
+    assert dp_cuda.LAUNCHES["dp_block"] == before["dp_block"] + 6 * 2
+    assert dp_cuda.LAUNCHES["dp_sharded"] == before["dp_sharded"]
+    vs = native.carve(img, 6)
+    np.testing.assert_array_equal(bc.state.vs[0].cpu().numpy(), vs)
+    np.testing.assert_array_equal(bc.images_at(250)[0],
+                                  native.materialize(img, vs, 250))
 
 
 def test_carver_cuda_matches_native(cuda):
@@ -345,7 +426,8 @@ def test_carver_cuda_matches_native(cuda):
     launched = {k: dp_cuda.LAUNCHES[k] - before[k] for k in before}
     assert launched == {"dp_forward": 0, "backtrack": 0, "carve_resident": 1,
                         "carve_resident_batched": 0, "dp_block": 0,
-                        "dp_energy_forward": 0, "backtrack_compact": 0}
+                        "dp_sharded": 0, "dp_energy_forward": 0,
+                        "backtrack_compact": 0}
     c.resize(270, 192)
     np.testing.assert_array_equal(c.get_image(),
                                   native.materialize(img, vs, 270))

@@ -21,7 +21,7 @@ from conftest import random_image
 from lqr_tpu.core import dp as jdp
 from lqr_tpu.parallel import batch as jbatch
 from lqr_tpu.parallel import sharding as jshard
-from lqr_tpu_torch import LqrImageError
+from lqr_tpu_torch import LqrConfigError, LqrImageError
 from lqr_tpu_torch.core import dp as tdp
 from lqr_tpu_torch.ops import dp_block as tdpb
 from lqr_tpu_torch.ops import dp_cuda
@@ -262,3 +262,87 @@ def test_make_mesh_needs_cuda_or_devices(monkeypatch):
         tshard.make_mesh(4, data=1)
     mesh = tshard.make_mesh(devices=["cpu"] * 2)
     assert mesh.shape == {"data": 1, "cols": 2}
+
+
+CUDA0 = torch.device("cuda", 0)
+
+
+def test_dp_route_by_placement():
+    """The sharded DP's placement rule: up to a cluster's MAX_SHARDS shards
+    on one CUDA device take the one-launch kernel; CPU shards, shards on
+    distinct devices and more shards on one device than a cluster holds
+    take the per-block loop. The one-launch entry itself refuses a mesh
+    wider than the cluster limit."""
+    assert tshard.dp_route([CUDA0] * 4) == "cluster"
+    assert tshard.dp_route([CUDA0] * tdpb.MAX_SHARDS) == "cluster"
+    assert tshard.dp_route(["cuda:0"]) == "cluster"
+    assert tshard.dp_route([torch.device("cpu")] * 4) == "blocks"
+    assert tshard.dp_route([CUDA0, torch.device("cuda", 1)]) == "blocks"
+    assert tshard.dp_route([CUDA0, torch.device("cpu")]) == "blocks"
+    assert tshard.dp_route([CUDA0] * (tdpb.MAX_SHARDS + 1)) == "blocks"
+    with pytest.raises(LqrConfigError, match="1 to 8 blocks"):
+        tdpb.dp_sharded([torch.zeros((4, 16))] * 9, None, True, 1, False, 4,
+                        4)
+
+
+def _blocked_inputs(n=4, H=16, Wl=64):
+    e, rig = _energy(9, H, n * Wl)
+    return ([torch.from_numpy(e[:, c * Wl:(c + 1) * Wl].copy())
+             for c in range(n)],
+            [torch.from_numpy(rig[:, c * Wl:(c + 1) * Wl].copy())
+             for c in range(n)])
+
+
+def test_one_device_mesh_takes_the_cluster_entry(monkeypatch):
+    """A mesh row whose shards share one CUDA device runs dp_sharded once a
+    seam (stood in for here by its plain version on CPU tensors), never the
+    per-block loop; its result is the per-block loop's. Twelve shards on
+    the device, more than a cluster holds, take the per-block loop."""
+    calls, loops = [], []
+
+    def sharded(*args):
+        calls.append(args)
+        return tdpb.dp_sharded_plain(*args)
+
+    def blocked(*args):
+        loops.append(args)
+        return tdpb.dp_sharded_plain(*args[:-1])
+
+    e_loc, rig_loc = _blocked_inputs()
+    want = tdpb.dp_sharded_plain(e_loc, rig_loc, True, 2, True, 16, 8)
+    monkeypatch.setattr(tshard, "dp_sharded", sharded)
+    monkeypatch.setattr(tshard, "dp_blocked", blocked)
+    got = tshard._dp_local_blocked(e_loc, rig_loc, True, 2, True, 16, 8,
+                                   [CUDA0] * 4)
+    assert len(calls) == 1 and not loops
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(g, w)
+    e12, rig12 = _blocked_inputs(n=12, Wl=32)
+    got = tshard._dp_local_blocked(e12, rig12, True, 2, True, 16, 8,
+                                   [CUDA0] * 12)
+    assert len(calls) == 1 and len(loops) == 1
+    want = tdpb.dp_sharded_plain(e12, rig12, True, 2, True, 16, 8)
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(g, w)
+
+
+def test_cpu_mesh_takes_the_plain_loop(monkeypatch):
+    """CPU shards run the per-block loop on dp_block's plain version, with
+    no kernel launched and the one-launch entry never called."""
+    def sharded(*args):
+        raise AssertionError("dp_sharded ran on a CPU mesh")
+
+    monkeypatch.setattr(tshard, "dp_sharded", sharded)
+    before = dict(dp_cuda.LAUNCHES)
+    e_loc, rig_loc = _blocked_inputs()
+    got = tshard._dp_local_blocked(e_loc, rig_loc, False, 1, True, 16, 8,
+                                   [torch.device("cpu")] * 4)
+    want = tdpb.dp_sharded_plain(e_loc, rig_loc, False, 1, True, 16, 8)
+    assert dp_cuda.LAUNCHES == before
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(g, w)
+    # and dp_sharded itself takes CPU tensors to its plain version
+    got = tdpb.dp_sharded(e_loc, rig_loc, False, 1, True, 16, 8)
+    assert dp_cuda.LAUNCHES == before
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(g, w)
