@@ -47,7 +47,10 @@ Phases, one line each (any failure exits non-zero):
              seam step's two kernels: dp_energy_forward at 2048x2048
              (delta_x=1, both side preferences; delta_x=2 with rigidity), at
              cfg2 with bias and rigidity under GRAD_XABS, GRAD_NORM and
-             NULL, and at a width below the buffer; backtrack_compact at
+             NULL, at a width below the buffer, and past one block's
+             shared-memory frontier: 256x32768 with rigidity and 8x65536
+             (timed at 2048x2048 and 256x32768); its square root against
+             __fsqrt_rn at every f32 >= +0; backtrack_compact at
              2048x2048, delta_x 1 and 2, with and without bias and
              rigidity, at full width and below it. Kernel and plain times
              at the shapes of the paths below.
@@ -464,6 +467,22 @@ def check_kernels(device, n: int) -> dict:
     return {"err": err, "ms": ms, "plain_ms": plain_ms}
 
 
+# the fused step's wide shape: past one block's shared-memory frontier
+WIDE_STEP = (256, 32768)
+
+
+def _step_planes(hw, seed, device):
+    """A reader plane of six levels (ties on purpose), a bias of eighths
+    and a rigidity of integers, on the device."""
+    import torch
+    rng = np.random.default_rng(seed)
+    planes = np.zeros((3,) + tuple(hw), np.float32)
+    planes[0] = rng.integers(0, 6, hw) / np.float32(5)
+    planes[1] = np.round(rng.standard_normal(hw) * 4) / 8
+    planes[2] = np.abs(np.round(rng.standard_normal(hw) * 4))
+    return tuple(torch.from_numpy(a).to(device) for a in planes)
+
+
 def check_carve_step(device, n: int) -> dict:
     """Phase 3: the fused seam step's two kernels against their plain
     versions on the same CUDA inputs (tolerance 0 on M_last, bp, the seam
@@ -493,6 +512,14 @@ def check_carve_step(device, n: int) -> dict:
             (False,))]
     fwd += [(f"cfg2 {w}x{h} bias+rig nrg={nrg}", p2, w, 1, nrg,
              (True, False)) for nrg in (0, 2, 6)]
+    # widths past one block's shared-memory frontier (device scratch)
+    wide = _step_planes(WIDE_STEP, 9, device)
+    fwd += [(f"{WIDE_STEP[0]}x{WIDE_STEP[1]} rig", (wide[0], None, wide[2]),
+             WIDE_STEP[1] - 8, 1, 0, (True, False))]
+    huge = _step_planes((8, 65536), 10, device)
+    fwd += [("8x65536 bias+rig nrg=2", huge, 65536 - 100, 2, 2,
+             (True, False)),
+            ("8x65536", (huge[0], None, None), 65536, 1, 0, (True,))]
     bt = [(f"{n}x{n}", (b, None, None), n, 1),
           (f"{n}x{n} bias+rig", (b, bias, rig), n, 2),
           (f"{n}x{n} w={n - 37}", (b, None, None), n - 37, 2),
@@ -530,21 +557,35 @@ def check_carve_step(device, n: int) -> dict:
                                      f"on {label}")
             err["backtrack_compact"] = max(err["backtrack_compact"], e)
 
+    bad = cs.sqrt_rn_mismatches(device)
+    say("kernels", f"dp_energy_forward's sqrt_rn against __fsqrt_rn at all "
+        f"2^31 f32 values >= +0: {bad} differ (tolerance 0)")
+    if bad:
+        raise AssertionError("sqrt_rn differs from __fsqrt_rn")
+
     main = ((b, None, None), n, True, 1, False, False, 0)
+    wmain = ((wide[0], None, None), WIDE_STEP[1], True, 1, False, False, 0)
     M, bp = cs.dp_energy_forward_plain(*main[0], *main[1:])
     bt_args = (M, bp, b, None, None, n, True, False, False)
     ms = {"dp_energy_forward": _cuda_ms(
               lambda: cs.dp_energy_forward(*main[0], *main[1:]), 20),
+          "dp_energy_forward wide": _cuda_ms(
+              lambda: cs.dp_energy_forward(*wmain[0], *wmain[1:]), 20),
           "backtrack_compact": _cuda_ms(
               lambda: cs.backtrack_compact(*bt_args), 20)}
     plain_ms = {"dp_energy_forward": _cuda_ms(
                     lambda: cs.dp_energy_forward_plain(*main[0], *main[1:]),
                     2),
+                "dp_energy_forward wide": _cuda_ms(
+                    lambda: cs.dp_energy_forward_plain(*wmain[0],
+                                                       *wmain[1:]), 2),
                 "backtrack_compact": _cuda_ms(
                     lambda: cs.backtrack_compact_plain(*bt_args), 2)}
     for k in ms:
-        say("kernels", f"{k} at {n}x{n} delta_x=1: kernel {ms[k]:.4f} ms, "
-            f"plain {plain_ms[k]:.4f} ms")
+        rows, shape = ((WIDE_STEP[0], "x".join(map(str, WIDE_STEP)))
+                       if k.endswith("wide") else (n, f"{n}x{n}"))
+        say("kernels", f"{k} at {shape} delta_x=1: kernel {ms[k]:.4f} ms "
+            f"({ms[k] * 1e3 / rows:.4f} us/row), plain {plain_ms[k]:.4f} ms")
     return {"err": err, "ms": ms, "plain_ms": plain_ms}
 
 
@@ -1220,6 +1261,7 @@ def kernel_bounds(n: int) -> dict:
     batch = ((360, 640, 32), (300, 600, 0), (200, 500, 20), (360, 620, 25))
     R, We = 32, DISTINCT[1] // 2 + 2 * 32
     c4_h, c4_w, c4_B, _ = CFG4
+    wh, ww = WIDE_STEP
     per_res = _energy_ops(0, True) + _dp_ops(1, True)
     per_bat = _energy_ops(0, True) + _dp_ops(2, True)
     return {
@@ -1256,6 +1298,9 @@ def kernel_bounds(n: int) -> dict:
         "dp_energy_forward": _bound(
             4 * H * W + 4 * W + H * W,
             H * W * (_energy_ops(0, False) + _dp_ops(1, False))),
+        "dp_energy_forward wide": _bound(
+            4 * wh * ww + 4 * ww + wh * ww,
+            wh * ww * (_energy_ops(0, False) + _dp_ops(1, False))),
         "backtrack_compact": _bound(4 * W + H + 2 * 4 * H * W + 4 * H,
                                     2 * W),
     }
@@ -1608,7 +1653,6 @@ def main() -> int:
                 "backtrack_compact": "lqr_tpu/ops/dp_pallas.py:925 and "
                                      "lqr_tpu/ops/dp_pallas.py:1002"}
     sources = {"carve_resident_batched": "carve_resident",
-               "dp_energy_forward": "carve_step",
                "backtrack_compact": "carve_step"}
     bounds = kernel_bounds(N)
     for kname, (ms_b, by) in bounds.items():
@@ -1616,7 +1660,9 @@ def main() -> int:
     for kname, shape in (("carve_resident", f"the main path's launch "
                                             f"({N}x{N}, {SEAMS} seams)"),
                          ("carve_resident cfg2", "cfg2's 128-seam chunk"),
-                         ("carve_resident_batched cfg4", "the cfg4 shape")):
+                         ("carve_resident_batched cfg4", "the cfg4 shape"),
+                         ("dp_energy_forward wide",
+                          "x".join(map(str, WIDE_STEP)))):
         say("bounds", f"{kname.split()[0]} at {shape}: "
             f"{k['ms'][kname]:.4f} ms, bound {bounds[kname][0]:.4f} ms "
             f"({bounds[kname][1]})")

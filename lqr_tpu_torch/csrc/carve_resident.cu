@@ -50,7 +50,7 @@
 //     with a y gradient, three rows each); E goes to a [H, Wp] f32
 //     scratch. It is off the DP's chain: computing the energy inside the
 //     row chain lengthens the chain more than it saves in bytes
-//     (carve_step.cu's dp_energy_forward: 1.69 against 1.33 us/row; the
+//     (a one-block dp_energy_forward: 1.69 against 1.33 us/row; the
 //     strip sweep with the energy from the reader rows it streams ran the
 //     batched cfg4 shape in 27.0 against 24.3 ms on an H100).
 //   - the DP: the warp strips of strip_dp.cuh (K-row halos, the E and rig

@@ -1,6 +1,7 @@
 // The energy of one pixel from the reader plane (SPEC.md §2), shared by
-// carve_resident.cu and carve_step.cu so that both kernels compute it in
-// the op order of core/energy.py (carve_step.cu also with load_px's loads):
+// carve_resident.cu and dp_energy_forward.cu so that both kernels compute
+// it in the op order of core/energy.py (dp_energy_forward.cu's row 0 also
+// with load_px's loads):
 //
 //   gx = (b[y, x+1] - b[y, x-1]) * 0.5          edges replicated at lane 0
 //                                               and lane w - 1

@@ -1,7 +1,7 @@
-// The seam DP's cell rule (SPEC.md §5), shared by dp_block.cu and
-// carve_step.cu so that the kernels take the same candidate on a tie (the
-// strip sweep of strip_dp.cuh unrolls the same rule); and the warp
-// reductions of the seam's start column.
+// The seam DP's cell rule (SPEC.md §5), dp_block.cu's, so that the
+// kernels take the same candidate on a tie (the strip sweep of
+// strip_dp.cuh unrolls the same rule); and the warp reductions of the
+// seam's start column (carve_step.cu).
 //
 //   M[y, x] = E[y, x] + min_{|dx| <= delta_x} ( M[y-1, x+dx] + rig[y, x] * rigc[|dx|] )
 //

@@ -24,7 +24,8 @@ BUILD = _PKG / "build"
 SO = BUILD / "liblqr_kernels.so"
 SOURCES = (CSRC / "dp_forward.cu", CSRC / "backtrack.cu",
            CSRC / "carve_resident.cu", CSRC / "dp_block.cu",
-           CSRC / "carve_step.cu", CSRC / "dp_sharded.cu")
+           CSRC / "carve_step.cu", CSRC / "dp_sharded.cu",
+           CSRC / "dp_energy_forward.cu")
 HEADERS = (CSRC / "seam_dp.cuh", CSRC / "energy.cuh",
            CSRC / "strip_dp.cuh", CSRC / "strip_sweep.inc",
            CSRC / "chase.cuh")
@@ -130,7 +131,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lqr_dp_sharded.restype = i
     lib.lqr_dp_sharded.argtypes = [p] * 3 + [i] * 10 + [p] * 4
     lib.lqr_dp_energy_forward.restype = i
-    lib.lqr_dp_energy_forward.argtypes = [p] * 4 + [i] * 6 + [p] * 3
+    lib.lqr_dp_energy_forward.argtypes = [p] * 4 + [i] * 11 + [p] * 4
+    lib.lqr_sqrt_rn_check.restype = i
+    lib.lqr_sqrt_rn_check.argtypes = [p, p]
     lib.lqr_backtrack_compact.restype = i
     lib.lqr_backtrack_compact.argtypes = [p] * 5 + [i] * 4 + [p] * 5
     lib.lqr_cuda_error_string.restype = ctypes.c_char_p

@@ -19,15 +19,21 @@ step never waits for the device.
   ``ops.dp_cuda``, then ``backtrack_compact``.
 
 Each wrapper runs its plain version on a CPU tensor and launches its kernel
-(``csrc/carve_step.cu``) on a CUDA tensor, on the current stream without
-synchronizing, or raises; there is no fallback from a failed launch to the
-plain version. ``carve_step_plain`` composes the plain versions.
+(``csrc/dp_energy_forward.cu``, ``csrc/carve_step.cu``) on a CUDA tensor,
+on the current stream without synchronizing, or raises; there is no
+fallback from a failed launch to the plain version. ``carve_step_plain``
+composes the plain versions.
 
-``fused_ok`` states this card's limits, which both modes share: the
-forward kernel holds two frontier rows of Wb f32 in one block's shared
-memory (at most 232 448 bytes on an H100, less its few static bytes: Wb
-<= 29 024). The TPU's rules (a fold factor > 1, a power-of-two lane count,
-H % BR == 0) do not apply.
+``dp_energy_forward``'s kernel pairs each warp of the strip sweep
+(``csrc/strip_dp.cuh``) with a producer warp that computes the energies
+into its row ring; ``energy_geometry`` picks its cluster and where its
+frontier lies.
+
+``fused_ok`` states the card's own limits, which both modes share: any
+H >= 1 and Wb >= 1 (the forward kernels keep their frontier rows in a
+device scratch past the shared memory), delta_x 0..10. The TPU's rules (a
+fold factor > 1, a power-of-two lane count, H % BR == 0) do not apply, so
+the port takes every shape JAX's ``fused_ok`` takes, and more.
 No seam route of the package calls ``carve_step``; ``chip_smoke.py`` drives
 it in a loop over seams, as ``scripts/attr2048.py`` drives the JAX op.
 """
@@ -40,18 +46,68 @@ from ..core import dp
 from ..core.engine import compactor, total_energy
 from . import _build, dp_cuda
 
-__all__ = ["MAX_WB", "fused_ok", "carve_step", "carve_step_plain",
+__all__ = ["fused_ok", "energy_geometry", "sqrt_rn_mismatches",
+           "carve_step", "carve_step_plain",
            "dp_energy_forward", "dp_energy_forward_plain",
            "backtrack_compact", "backtrack_compact_plain"]
 
-# two f32 frontier rows in an H100 block's opt-in shared memory, 256
-# bytes left for the kernel's static shared memory
-MAX_WB = (232448 - 256) // 8
+# csrc/dp_energy_forward.cu: a consumer warp's ring stages, a producer
+# warp's ring of copy groups, the floats of a group's b slot (two boxes of
+# 4 rows: the 256-column window and 4 columns each side, the first box
+# padded to 128 bytes) and of its bias or rig slot, and the most consumer
+# warps a block runs
+STAGES = 8
+GROUPS = 4
+SLOT_B = 1088
+SLOT_M = 4 * dp_cuda.WINDOW
+MAX_PAIRS = 8
+
+
+def pair_bytes(has_bias: bool, has_rig: bool) -> int:
+    """Shared memory of one consumer/producer warp pair: a full and an
+    empty mbarrier per stage and a fill mbarrier per group slot, the
+    consumer's E (and rig) ring, the producer's ring of b (and bias and
+    rig) groups."""
+    slot = SLOT_B + SLOT_M * (int(has_bias) + int(has_rig))
+    return ((2 * STAGES + GROUPS) * 8
+            + STAGES * dp_cuda.WINDOW * 4 * (1 + has_rig) + GROUPS * slot * 4)
+
+
+def energy_geometry(Wb: int, delta_x: int, has_bias: bool, has_rig: bool,
+                    optin: int):
+    """(frontier in scratch, (ctas, warps, S, G, K)) of dp_energy_forward
+    for a map of Wb columns on a card with `optin` bytes of shared memory a
+    block. The frontier pair (2 * round_up(Wb, 4) f32) stays in shared
+    memory when it fits beside the pairs of
+    dp_cuda.MIN_WARPS_SMEM_FRONTIER warps, else it goes to a device
+    scratch; the consumer warps a block are then as many pairs as fit the
+    rest (pair_bytes), at most MAX_PAIRS (so at most 16 warps, each with
+    128 registers), and dp_cuda.strip_geometry picks the strips under that
+    cap."""
+    pair = pair_bytes(has_bias, has_rig)
+    front = dp_cuda._front_bytes(Wb)
+    scratch = front + dp_cuda.MIN_WARPS_SMEM_FRONTIER * pair > optin
+    cap = min(MAX_PAIRS, (optin - (0 if scratch else front)) // pair)
+    return scratch, dp_cuda.strip_geometry(Wb, delta_x, cap)
+
+
+def sqrt_rn_mismatches(device: torch.device) -> int:
+    """The number of f32 values >= +0 (NaNs included) at which
+    dp_energy_forward's square root (csrc/dp_energy_forward.cu: sqrt_rn)
+    differs from CUDA's __fsqrt_rn in any bit, counted on the card over
+    all 2^31 of them; 0 is the kernel's claim."""
+    lib = _build.load()
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        rc = lib.lqr_sqrt_rn_check(bad.data_ptr(),
+                                   torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, "lqr_sqrt_rn_check")
+    return int(bad.item())
 
 
 def fused_ok(H: int, Wb: int, delta_x: int = 1) -> bool:
     """Whether carve_step takes an [H, Wb] map at this delta_x."""
-    return H >= 1 and 1 <= Wb <= MAX_WB and 0 <= delta_x <= 10
+    return H >= 1 and Wb >= 1 and 0 <= delta_x <= 10
 
 
 def _check_planes(cur_b, cur_bias, cur_rig, has_bias, has_rig) -> None:
@@ -71,7 +127,7 @@ def _check_step(cur_b, w: int, delta_x: int, nrg: int) -> None:
     H, Wb = cur_b.shape
     if not fused_ok(H, Wb, delta_x):
         raise ValueError(f"carve_step does not take H={H} Wb={Wb} "
-                         f"delta_x={delta_x} (fused_ok: Wb <= {MAX_WB}, "
+                         f"delta_x={delta_x} (fused_ok: H >= 1, Wb >= 1, "
                          f"delta_x 0..10)")
     if not 1 <= w <= Wb:
         raise ValueError(f"w={w} out of range 1..{Wb}")
@@ -106,13 +162,19 @@ def dp_energy_forward(cur_b, cur_bias, cur_rig, w: int, pref_left: bool,
     M_last = torch.empty(Wb, dtype=torch.float32, device=dev)
     bp = torch.empty((H, Wb), dtype=torch.int8, device=dev)
     rigc = dp_cuda._rigc_device(delta_x, H, dev)
+    in_scratch, geo = energy_geometry(Wb, delta_x, has_bias, has_rig,
+                                      dp_cuda.smem_optin(dev))
+    scratch = (torch.empty(dp_cuda._front_bytes(Wb) // 4,
+                           dtype=torch.float32, device=dev)
+               if in_scratch else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lqr_dp_energy_forward(
             cur_b.data_ptr(), cur_bias.data_ptr() if has_bias else None,
             cur_rig.data_ptr() if has_rig else None, rigc.data_ptr(),
-            int(bool(pref_left)), delta_x, nrg, H, Wb, int(w),
-            M_last.data_ptr(), bp.data_ptr(), stream)
+            int(bool(pref_left)), delta_x, nrg, H, Wb, int(w), *geo,
+            M_last.data_ptr(), bp.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), stream)
     _build.check(lib, rc, "lqr_dp_energy_forward")
     dp_cuda.LAUNCHES["dp_energy_forward"] += 1
     return M_last, bp

@@ -198,6 +198,41 @@ def test_carve_step_where_jax_fused_ok_refuses(dx):
             _assert_step_equal(got, want, True, True, f"{pref=} {fuse=}")
 
 
+# Widths past one block's shared-memory frontier (two rows of Wb f32) that
+# JAX's fused_ok takes (a fold factor > 1): (Wb, delta_x, masks,
+# carve_step_pallas's mode, its side preference); the other preference is
+# held against JAX's unfused step, which is faster in interpret mode. At
+# 8 x 32768 and delta_x = 2 carve_step_pallas raises in interpret mode
+# (a 16-row slice of an 8-row block) although fused_ok takes the shape, so
+# both preferences are held against the unfused step there (None).
+_WIDE = [(29696, 1, False, True, True),
+         (32768, 1, False, False, False),
+         (32768, 2, True, True, None)]
+
+
+@pytest.mark.parametrize("Wb,dx,masks,jax_fuse,jax_pref", _WIDE)
+def test_carve_step_takes_every_width_jax_fused_ok_takes(
+        monkeypatch, Wb, dx, masks, jax_fuse, jax_pref):
+    """H = 8 at widths past the old 29 024-column cap: the port's fused_ok
+    takes each, and both modes of carve_step equal JAX's step bit for
+    bit."""
+    monkeypatch.setenv("LQR_PALLAS_INTERPRET", "1")
+    from lqr_tpu.ops import dp_pallas
+    H, W = 8, Wb - 70
+    assert dp_pallas.fused_ok(H, Wb, dx) and tcs.fused_ok(H, Wb, dx)
+    b, bias, rig = _planes(Wb + dx, H, W, Wb, masks, masks)
+    flags = (masks, masks, 1 if masks else 0)
+    for pref in (True, False):
+        jargs = (jnp.asarray(b), jnp.asarray(bias), jnp.asarray(rig),
+                 jnp.int32(W), jnp.bool_(pref))
+        want = (dp_pallas.carve_step_pallas(*jargs, dx, *flags,
+                                            fuse_energy=jax_fuse)
+                if pref == jax_pref else _ref_carve_once(*jargs, dx, *flags))
+        for fuse in (False, True):
+            got = _port_step(b, bias, rig, W, pref, dx, *flags, fuse)
+            _assert_step_equal(got, want, masks, masks, f"{pref=} {fuse=}")
+
+
 def test_carve_step_parts_equal_their_plain_versions():
     """dp_energy_forward and backtrack_compact on CPU tensors are their
     plain versions; a width below the buffer, rigidity at delta_x = 2."""
@@ -239,8 +274,9 @@ def test_carve_step_checks_arguments():
             tcs.carve_step(*args)
     with pytest.raises(TypeError, match="dtype"):
         tcs.carve_step(b.double(), *ok[1:])
-    assert not tcs.fused_ok(H, tcs.MAX_WB + 1)
-    assert tcs.fused_ok(H, tcs.MAX_WB) and not tcs.fused_ok(0, Wb)
+    assert tcs.fused_ok(H, 65536, 10) and tcs.fused_ok(1, 1, 0)
+    assert not tcs.fused_ok(0, Wb) and not tcs.fused_ok(H, 0)
+    assert not tcs.fused_ok(H, Wb, 11) and not tcs.fused_ok(H, Wb, -1)
 
 
 def _loop_states(img, bias, rig, Wb, **kw):

@@ -545,11 +545,33 @@ _STEP_SHAPES = [
 ]
 
 
-@pytest.mark.parametrize("H,W,Wb,w,dx,nrg,has_bias,has_rig", _STEP_SHAPES)
+# dp_energy_forward's cases: the strip kernel's edges (chip_smoke.EDGE_CASES,
+# "offset": the planes 4 bytes past a 16-byte boundary, so the producers
+# copy with cp.async instead of tensor copies) under every energy, without
+# and with bias and rigidity; widths past one block's shared-memory
+# frontier; the step shapes above
+_DEF_CASES = (
+    [(H, W, Wb, max(1, W - nrg % 3), dx, nrg, m, m, planes)
+     for H, W, Wb, dx, _, planes in SMOKE.EDGE_CASES
+     for nrg in range(7) for m in (False, True)]
+    + [(256, 32768, 32768, 32760, 1, 0, False, True, "ties"),
+       (8, 65536, 65536, 65436, 2, 2, True, True, "ties"),
+       (8, 65536, 65536, 65536, 1, 0, False, False, "ties")]
+    + [shape + ("ties",) for shape in _STEP_SHAPES])
+
+
+@pytest.mark.parametrize("H,W,Wb,w,dx,nrg,has_bias,has_rig,planes",
+                         _DEF_CASES)
 def test_dp_energy_forward_matches_plain(cuda, H, W, Wb, w, dx, nrg,
-                                         has_bias, has_rig):
+                                         has_bias, has_rig, planes):
     from lqr_tpu_torch.ops import carve_step
     b, bias, rig = _step_planes(H + nrg, H, W, Wb, cuda)
+    if planes == "offset":
+        def offset(a):
+            buf = torch.empty(a.numel() + 1, device=cuda)
+            buf[1:] = a.flatten()
+            return buf[1:].view(a.shape)
+        b, bias, rig = offset(b), offset(bias), offset(rig)
     for pref in (True, False):
         args = (b, bias if has_bias else None, rig if has_rig else None, w,
                 pref, dx, has_bias, has_rig, nrg)
@@ -559,6 +581,13 @@ def test_dp_energy_forward_matches_plain(cuda, H, W, Wb, w, dx, nrg,
         torch.cuda.synchronize()
         assert dp_cuda.LAUNCHES["dp_energy_forward"] == before + 1
         assert torch.equal(M_k, M_p) and torch.equal(bp_k, bp_p), pref
+
+
+def test_sqrt_rn_matches_fsqrt_rn(cuda):
+    """The producers' square root equals __fsqrt_rn in every bit at each of
+    the 2^31 f32 values >= +0."""
+    from lqr_tpu_torch.ops import carve_step
+    assert carve_step.sqrt_rn_mismatches(cuda) == 0
 
 
 @pytest.mark.parametrize("H,W,Wb,w,dx,nrg,has_bias,has_rig", _STEP_SHAPES)
@@ -586,41 +615,47 @@ def test_backtrack_compact_matches_plain(cuda, H, W, Wb, w, dx, nrg,
 
 
 def test_carve_step_at_max_width(cuda):
-    """The widest map fused_ok admits: two frontier rows fill the opt-in
-    shared memory, and both modes equal the plain step."""
+    """Maps past one block's shared-memory frontier, up to the widest a
+    test runs (8 x 65536 with bias and rigidity, 256 x 32768): both modes
+    equal the plain step."""
     from lqr_tpu_torch.ops import carve_step
-    Wb = carve_step.MAX_WB
-    assert carve_step.fused_ok(8, Wb) and not carve_step.fused_ok(8, Wb + 1)
-    b, bias, rig = _step_planes(4, 8, Wb - 3, Wb, cuda)
-    args = (b, bias, rig, Wb - 3, True, 1, True, True, 0)
-    want = carve_step.carve_step_plain(*args)
-    for fuse in (False, True):
-        got = carve_step.carve_step(*args, fuse_energy=fuse)
-        torch.cuda.synchronize()
-        for g, e in zip(got, want):
-            assert torch.equal(g, e), fuse
+    for H, Wb, w, masks in ((8, 65536, 65536 - 3, True),
+                            (256, 32768, 32768, False)):
+        assert carve_step.fused_ok(H, Wb)
+        b, bias, rig = _step_planes(4, H, w, Wb, cuda)
+        args = (b, bias if masks else None, rig if masks else None, w, True,
+                1, masks, masks, 0)
+        want = carve_step.carve_step_plain(*args)
+        for fuse in (False, True):
+            got = carve_step.carve_step(*args, fuse_energy=fuse)
+            torch.cuda.synchronize()
+            for g, e in zip(got, want):
+                assert (g is None and e is None) or torch.equal(g, e), fuse
 
 
 def test_carve_step_refused_launches_raise(cuda):
-    """Bad arguments never launch: the wrapper refuses a map past fused_ok,
-    and the launchers refuse delta_x = 11, a frontier beyond the shared
-    memory and a plane without its output, when called past the wrapper."""
+    """Bad arguments never launch: the wrapper refuses delta_x = 11 (past
+    fused_ok), and the launchers refuse delta_x = 11, more consumer warps
+    than a block pairs, a halo narrower than delta_x * K, and a plane
+    without its output, when called past the wrapper."""
     from lqr_tpu_torch.ops import _build, carve_step
     lib = _build.load()
     before = dict(dp_cuda.LAUNCHES)
-    wide = torch.zeros((2, carve_step.MAX_WB + 1), device=cuda)
+    b = torch.zeros((2, 256), device=cuda)
     with pytest.raises(ValueError, match="fused_ok"):
-        carve_step.carve_step(wide, None, None, 10, True, 1, False, False, 0,
+        carve_step.carve_step(b, None, None, 10, True, 11, False, False, 0,
                               fuse_energy=True)
     stream = torch.cuda.current_stream().cuda_stream
-    b = torch.zeros((2, 30000), device=cuda)
-    m = torch.empty(30000, device=cuda)
-    bp = torch.empty((2, 30000), dtype=torch.int8, device=cuda)
+    m = torch.empty(256, device=cuda)
+    bp = torch.empty((2, 256), dtype=torch.int8, device=cuda)
     rigc = torch.zeros(12, device=cuda)
-    for dx, Wb in ((11, 256), (1, 30000)):      # 2 * 30000 * 4 B > 227 KB
+    for dx, geo in ((11, dp_cuda.strip_geometry(256, 1)),
+                    (1, (1, 9, 16, 120, 64)),
+                    (2, (1, 1, 160, 48, 25))):
         rc = lib.lqr_dp_energy_forward(b.data_ptr(), None, None,
-                                       rigc.data_ptr(), 1, dx, 0, 2, Wb, Wb,
-                                       m.data_ptr(), bp.data_ptr(), stream)
+                                       rigc.data_ptr(), 1, dx, 0, 2, 256, 256,
+                                       *geo, m.data_ptr(), bp.data_ptr(),
+                                       None, stream)
         with pytest.raises(RuntimeError, match="launch failed"):
             _build.check(lib, rc, "lqr_dp_energy_forward")
     seam = torch.empty(2, dtype=torch.int32, device=cuda)

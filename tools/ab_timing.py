@@ -7,7 +7,8 @@ Imports ROOT's chip_smoke.py and ROOT's lqr_tpu_torch, builds its kernels,
 and times what phase 5 times: 100 seams at 2048x2048 through both
 extend_map routes and through both modes of the fused step, both routes
 at 1024x768 with masks and at 512x384, BatchCarver.carve on cfg5 and one
-cfg4 wave, and the column-sharded 2048x2048. With --kernels it times
+cfg4 wave, and the column-sharded 2048x2048; first the fused step's
+forward kernel (dp_energy_forward) at 2048x2048. With --kernels it times
 instead the DP and backtrack kernels alone (CUDA events, the mean of 50
 launches) at the shapes their routes give them: 2048x2048, 1024x768 with
 rigidity, 512x384. Each line is prefixed with LABEL. To compare two
@@ -42,6 +43,22 @@ def time_kernels(smoke, dev, label: str) -> None:
               flush=True)
 
 
+def time_fused_kernel(smoke, dev, label: str) -> None:
+    """The fused step's forward kernel of ROOT (dp_energy_forward) at the
+    fused loop's first step, 2048x2048 at delta_x 1, without masks."""
+    import torch
+    from lqr_tpu_torch.core.energy import reader_plane
+    from lqr_tpu_torch.ops import carve_step as cs
+
+    n = smoke.N
+    b = reader_plane(torch.from_numpy(smoke.make_test_image(n)).to(dev), 0)
+    ms = smoke._cuda_ms(
+        lambda: cs.dp_energy_forward(b, None, None, n, True, 1, False, False,
+                                     0), 20)
+    print(f"[{label}] {n}x{n}: dp_energy_forward {ms:.4f} ms on "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+
 def main(argv: list[str]) -> int:
     root, label = pathlib.Path(argv[0]).resolve(), argv[1]
     sys.path.insert(0, str(root))
@@ -60,6 +77,7 @@ def main(argv: list[str]) -> int:
     smoke.say = lambda phase, msg: print(f"[{label}] {msg}", flush=True)
     dev = torch.device("cuda", 0)
     gpu = torch.cuda.get_device_name(0)
+    time_fused_kernel(smoke, dev, label)
     if argv[2:] == ["--kernels"]:
         time_kernels(smoke, dev, label)
         return 0

@@ -31,8 +31,10 @@ sys.path.insert(0, str(ROOT))
 from lqr_tpu_torch.ops import _build  # noqa: E402
 
 _COMMENT = re.compile(r"/\*.*?\*/")
-# an anonymous namespace's mangled name carries a hash of the file's path
-_ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_")
+# an anonymous namespace's mangled name carries hashes of the file (its
+# path, and the translation unit: they change with an edit of the file or
+# of a header it includes)
+_ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_\w*?_[0-9a-f]{8}(?=\d)")
 _REG = re.compile(r"\bU?[RP]\d+\b")
 
 
