@@ -52,8 +52,14 @@ Phases, one line each (any failure exits non-zero):
              (timed at 2048x2048 and 256x32768); its square root against
              __fsqrt_rn at every f32 >= +0; backtrack_compact at
              2048x2048, delta_x 1 and 2, with and without bias and
-             rigidity, at full width and below it. Kernel and plain times
-             at the shapes of the paths below.
+             rigidity, at full width and below it, and at its edges
+             (STEP_EDGES: Wb % 4 != 0, Wb < 144, Wb = 1, H < 32, H = 1,
+             w = 1, w = Wb, bands that do not divide H, delta_x 3 and 7,
+             three column segments, ties everywhere, unaligned planes),
+             timed at 2048x2048 without and with bias and rigidity beside
+             its two-launch yardstick (the backtrack kernel, then the
+             engine's torch compaction). Kernel and plain times at the
+             shapes of the paths below.
 4. slice   — the paths through the public surfaces, each with the launch
              counts set to 0 just before it and read just after: Carver at
              2048x2048, 100 seams (the resident kernel), and the same
@@ -470,6 +476,49 @@ def check_kernels(device, n: int) -> dict:
 # the fused step's wide shape: past one block's shared-memory frontier
 WIDE_STEP = (256, 32768)
 
+# backtrack_compact's edges: (H, W, Wb, w, delta_x, nrg, has_bias, has_rig,
+# planes), the planes zero past W, with planes "ties" (a reader plane of
+# six levels), "flat" (one level: M_last and every DP candidate tie) or
+# "offset" (the planes 4 bytes past a 16-byte boundary)
+STEP_EDGES = [
+    (64, 1021, 1021, 1000, 1, 0, True, True, "ties"),   # Wb % 4 != 0
+    (40, 100, 100, 100, 1, 0, False, False, "ties"),    # Wb < 144, w = Wb
+    (50, 37, 37, 30, 2, 0, True, False, "ties"),        # both, scalar path
+    (30, 1, 1, 1, 0, 0, False, True, "ties"),           # Wb = 1
+    (20, 300, 304, 290, 2, 0, True, False, "ties"),     # H < 32
+    (1, 500, 512, 500, 1, 0, False, True, "ties"),      # H = 1
+    (30, 200, 256, 1, 1, 0, True, True, "ties"),        # w = 1: all zero
+    (333, 700, 704, 700, 3, 0, True, True, "ties"),     # bands ragged
+    (100, 640, 640, 640, 7, 0, False, True, "ties"),    # seams leave windows
+    (8, 5000, 5000, 4990, 2, 0, True, True, "ties"),    # 3 column segments
+    (80, 256, 256, 256, 2, 0, False, False, "flat"),    # ties everywhere
+    (90, 2000, 2048, 2000, 1, 0, True, True, "flat"),
+    (70, 600, 640, 600, 1, 0, True, True, "offset"),    # unaligned planes
+    (2048, 2048, 2048, 1990, 2, 0, True, True, "offset"),
+]
+
+
+def step_planes(case, device):
+    """The (b, bias, rig) planes of one of STEP_EDGES (or of a step shape
+    with its planes kind), zero past W, on the device; bias and rig even
+    where the case has none."""
+    import torch
+    H, W, Wb, _, dx, nrg, _, _, kind = case
+    rng = np.random.default_rng(H * 7 + Wb + dx + nrg)
+    planes = np.zeros((3, H, Wb), np.float32)
+    planes[0, :, :W] = (np.float32(0.4) if kind == "flat" else
+                        rng.integers(0, 6, (H, W)) / np.float32(5))
+    planes[1, :, :W] = np.round(rng.standard_normal((H, W)) * 4) / 8
+    planes[2, :, :W] = np.abs(np.round(rng.standard_normal((H, W)) * 8))
+    if kind != "offset":
+        return tuple(torch.from_numpy(a).to(device) for a in planes)
+
+    def offset(a):
+        buf = torch.empty(a.size + 1, dtype=torch.float32, device=device)
+        buf[1:] = torch.from_numpy(a.ravel()).to(device)
+        return buf[1:].view(a.shape)
+    return tuple(offset(a) for a in planes)
+
 
 def _step_planes(hw, seed, device):
     """A reader plane of six levels (ties on purpose), a bias of eighths
@@ -522,8 +571,15 @@ def check_carve_step(device, n: int) -> dict:
             ("8x65536", (huge[0], None, None), 65536, 1, 0, (True,))]
     bt = [(f"{n}x{n}", (b, None, None), n, 1),
           (f"{n}x{n} bias+rig", (b, bias, rig), n, 2),
+          (f"{n}x{n} bias+rig delta_x=1", (b, bias, rig), n, 1),
           (f"{n}x{n} w={n - 37}", (b, None, None), n - 37, 2),
           (f"{n}x{n} w={n - 37} bias+rig", (b, bias, rig), n - 37, 1)]
+    for case in STEP_EDGES:
+        H, W, Wb, ww, dx, _, has_bias, has_rig, kind = case
+        pb, pbias, prig = step_planes(case, device)
+        bt.append((f"{H}x{Wb} W={W} {kind}",
+                   (pb, pbias if has_bias else None,
+                    prig if has_rig else None), ww, dx))
     err = {"dp_energy_forward": 0.0, "backtrack_compact": 0.0}
     for label, planes, ww, dx, nrg, prefs in fwd:
         flags = (planes[1] is not None, planes[2] is not None)
@@ -567,12 +623,20 @@ def check_carve_step(device, n: int) -> dict:
     wmain = ((wide[0], None, None), WIDE_STEP[1], True, 1, False, False, 0)
     M, bp = cs.dp_energy_forward_plain(*main[0], *main[1:])
     bt_args = (M, bp, b, None, None, n, True, False, False)
+    bt_masks = (M, bp, b, bias, rig, n, True, True, True)
     ms = {"dp_energy_forward": _cuda_ms(
               lambda: cs.dp_energy_forward(*main[0], *main[1:]), 20),
           "dp_energy_forward wide": _cuda_ms(
               lambda: cs.dp_energy_forward(*wmain[0], *wmain[1:]), 20),
           "backtrack_compact": _cuda_ms(
-              lambda: cs.backtrack_compact(*bt_args), 20)}
+              lambda: cs.backtrack_compact(*bt_args), 20),
+          "backtrack_compact masks": _cuda_ms(
+              lambda: cs.backtrack_compact(*bt_masks), 20)}
+    # the two-launch yardstick: what the per-seam route pays for the same
+    # function, #2's backtrack kernel and the engine's torch compaction
+    yard = {label: _cuda_ms(lambda: two_launch_step(*args), 20)
+            for label, args in (("no masks", bt_args),
+                                ("bias+rig", bt_masks))}
     plain_ms = {"dp_energy_forward": _cuda_ms(
                     lambda: cs.dp_energy_forward_plain(*main[0], *main[1:]),
                     2),
@@ -585,8 +649,26 @@ def check_carve_step(device, n: int) -> dict:
         rows, shape = ((WIDE_STEP[0], "x".join(map(str, WIDE_STEP)))
                        if k.endswith("wide") else (n, f"{n}x{n}"))
         say("kernels", f"{k} at {shape} delta_x=1: kernel {ms[k]:.4f} ms "
-            f"({ms[k] * 1e3 / rows:.4f} us/row), plain {plain_ms[k]:.4f} ms")
+            f"({ms[k] * 1e3 / rows:.4f} us/row)"
+            + (f", plain {plain_ms[k]:.4f} ms" if k in plain_ms else ""))
+    for label, t in yard.items():
+        mine = ms["backtrack_compact" + (" masks" if "rig" in label else "")]
+        say("kernels", f"backtrack_compact's yardstick at {n}x{n} {label} "
+            f"(backtrack kernel + torch compaction): {t:.4f} ms; the fused "
+            f"kernel {mine:.4f} ms ({t / mine:.2f}x)")
     return {"err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def two_launch_step(M, bp, b, bias, rig, w, pref_left, has_bias, has_rig):
+    """backtrack_compact's function as the per-seam route computes it:
+    the backtrack kernel (dp_cuda.backtrack), then engine.compactor's torch
+    ops on each plane present."""
+    from lqr_tpu_torch.core.engine import compactor
+    from lqr_tpu_torch.ops import dp_cuda
+    seam = dp_cuda.backtrack(M, bp, pref_left)
+    compact = compactor(seam, w, b.shape[1])
+    return (seam, compact(b), compact(bias) if has_bias else bias,
+            compact(rig) if has_rig else rig)
 
 
 def check_resident(device) -> dict:
@@ -1303,6 +1385,8 @@ def kernel_bounds(n: int) -> dict:
             wh * ww * (_energy_ops(0, False) + _dp_ops(1, False))),
         "backtrack_compact": _bound(4 * W + H + 2 * 4 * H * W + 4 * H,
                                     2 * W),
+        "backtrack_compact masks": _bound(
+            4 * W + H + 3 * 2 * 4 * H * W + 4 * H, 2 * W),
     }
 
 
@@ -1662,7 +1746,9 @@ def main() -> int:
                          ("carve_resident cfg2", "cfg2's 128-seam chunk"),
                          ("carve_resident_batched cfg4", "the cfg4 shape"),
                          ("dp_energy_forward wide",
-                          "x".join(map(str, WIDE_STEP)))):
+                          "x".join(map(str, WIDE_STEP))),
+                         ("backtrack_compact masks",
+                          f"{N}x{N} with bias and rig")):
         say("bounds", f"{kname.split()[0]} at {shape}: "
             f"{k['ms'][kname]:.4f} ms, bound {bounds[kname][0]:.4f} ms "
             f"({bounds[kname][1]})")

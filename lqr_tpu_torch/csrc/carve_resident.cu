@@ -123,25 +123,6 @@ struct Chunk {
   int ctas, warps, S, G, K;   // the DP's geometry
 };
 
-// The larger-is-better test of a start-column candidate (v, x) against the
-// best so far: a smaller value, or the same value further LEFT / RIGHT.
-__device__ __forceinline__ bool better(float v, int x, float bv, int bx,
-                                       bool left) {
-  return v < bv || (v == bv && (left ? x < bx : x > bx));
-}
-
-__device__ __forceinline__ void warp_best(float& v, int& x, bool left) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(kFull, v, o);
-    const int ox = __shfl_xor_sync(kFull, x, o);
-    if (better(ov, ox, v, x, left)) {
-      v = ov;
-      x = ox;
-    }
-  }
-}
-
 __device__ __forceinline__ float4 ldcg4(const float* p) {
   return __ldcg(reinterpret_cast<const float4*>(p));
 }

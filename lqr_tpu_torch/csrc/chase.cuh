@@ -1,5 +1,5 @@
-// The windowed warp chase of a seam (SPEC.md §5), shared by backtrack.cu
-// and carve_resident.cu:
+// The windowed warp chase of a seam (SPEC.md §5), shared by backtrack.cu,
+// carve_resident.cu and carve_step.cu:
 //
 //   x_{y-1} = x_y + bp[y, x_y]            seam[y] = x_y
 //
@@ -19,7 +19,10 @@
 // The loads go through a policy (Ld): backtrack.cu reads a bp that no
 // launch of its own writes (__ldg); the resident kernel reads the bp its
 // other blocks wrote earlier in the same launch, so it loads past the L1
-// (__ldcg).
+// (__ldcg). A second policy (Pub) hears, after each window's rows are in
+// seam[], that every row >= y is: backtrack.cu and the resident kernel
+// publish nothing (NoPublish); carve_step.cu's chase hands each window to
+// a publisher warp for the blocks that compact behind it.
 
 #pragma once
 
@@ -46,6 +49,33 @@ struct LdgLoad {
   static __device__ __forceinline__ int8_t byte(const int8_t* p) {
     return *p;
   }
+};
+
+// The chase's start column, reduced over a block as (value, column)
+// pairs: the larger-is-better test of a candidate (v, x) against the best
+// so far (a smaller value, or the same value further LEFT / RIGHT), and
+// its butterfly over a warp.
+__device__ __forceinline__ bool better(float v, int x, float bv, int bx,
+                                       bool left) {
+  return v < bv || (v == bv && (left ? x < bx : x > bx));
+}
+
+__device__ __forceinline__ void warp_best(float& v, int& x, bool left) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+    const int ox = __shfl_xor_sync(0xffffffffu, x, o);
+    if (better(ov, ox, v, x, left)) {
+      v = ov;
+      x = ox;
+    }
+  }
+}
+
+// No publication: rows_from(y, lane) is called with every row >= y in
+// seam[] (y <= 0: every row), by every lane of the chasing warp.
+struct NoPublish {
+  __device__ __forceinline__ void rows_from(int, int) const {}
 };
 
 // The window of rows below `top` around column x, clamped to the map.
@@ -94,13 +124,14 @@ __device__ __forceinline__ void fill_bytes(int8_t* win, const int8_t* bp,
 // each window into seam[]. win: two windows of kRows * kSpan bytes in
 // shared memory, 16-byte aligned. While it chases one window, the next
 // one's loads (the rows below, centred on the column where this window
-// began) are in flight.
-template <class Ld>
+// began) are in flight. After each window's rows are stored, pub hears
+// from every lane which rows are in seam[].
+template <class Ld, class Pub = NoPublish>
 __device__ __forceinline__ void warp_chase(const int8_t* __restrict__ bp,
                                            int Wb, int top, int x,
                                            int* __restrict__ seam,
                                            int8_t (*win)[kRows * kSpan],
-                                           int lane) {
+                                           int lane, Pub pub = Pub()) {
   const bool vec = Wb % 16 == 0 && Wb >= kSpan &&
                    reinterpret_cast<uintptr_t>(bp) % 16 == 0;
   const int span = min(kSpan, Wb);
@@ -151,6 +182,7 @@ __device__ __forceinline__ void warp_chase(const int8_t* __restrict__ bp,
     x = xo + w.lo;
     if (r == 0) break;       // x left [0, Wb): bp did not come from the DP
     y -= r;
+    pub.rows_from(y + 1, lane);
     if (y < 0) break;
     cur ^= 1;
     if (ahead && r == w.n && (unsigned)(x - nw.lo) < (unsigned)span) {

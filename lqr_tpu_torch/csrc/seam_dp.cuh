@@ -1,7 +1,6 @@
 // The seam DP's cell rule (SPEC.md §5), dp_block.cu's, so that the
 // kernels take the same candidate on a tie (the strip sweep of
-// strip_dp.cuh unrolls the same rule); and the warp reductions of the
-// seam's start column (carve_step.cu).
+// strip_dp.cuh unrolls the same rule).
 //
 //   M[y, x] = E[y, x] + min_{|dx| <= delta_x} ( M[y-1, x+dx] + rig[y, x] * rigc[|dx|] )
 //
@@ -50,21 +49,4 @@ __device__ __forceinline__ float dp_best(const float* prev, int x, int Wb,
   }
   *best_dx = bdx;
   return best;
-}
-
-// The start column (the minimum of the last DP row at its leftmost or
-// rightmost column) reduces over a block in two passes: warp_min, then
-// warp_pick of the columns holding that minimum.
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ int warp_pick(int v, bool left) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const int u = __shfl_xor_sync(0xffffffffu, v, o);
-    v = left ? min(v, u) : max(v, u);
-  }
-  return v;
 }

@@ -135,7 +135,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lqr_sqrt_rn_check.restype = i
     lib.lqr_sqrt_rn_check.argtypes = [p, p]
     lib.lqr_backtrack_compact.restype = i
-    lib.lqr_backtrack_compact.argtypes = [p] * 5 + [i] * 4 + [p] * 5
+    lib.lqr_backtrack_compact.argtypes = ([p] * 5 + [i] * 4 + [p] * 5
+                                          + [ctypes.c_uint, p])
     lib.lqr_cuda_error_string.restype = ctypes.c_char_p
     lib.lqr_cuda_error_string.argtypes = [i]
     return lib

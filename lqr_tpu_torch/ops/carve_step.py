@@ -27,7 +27,10 @@ composes the plain versions.
 ``dp_energy_forward``'s kernel pairs each warp of the strip sweep
 (``csrc/strip_dp.cuh``) with a producer warp that computes the energies
 into its row ring; ``energy_geometry`` picks its cluster and where its
-frontier lies.
+frontier lies. ``backtrack_compact``'s kernel runs one windowed chase a
+launch (``csrc/chase.cuh``) that publishes its rows as it goes, and the
+other blocks compact bands of rows behind it; the wrapper keeps two words
+of device scratch and an epoch per stream for it (``_sync_words``).
 
 ``fused_ok`` states the card's own limits, which both modes share: any
 H >= 1 and Wb >= 1 (the forward kernels keep their frontier rows in a
@@ -39,6 +42,8 @@ it in a loop over seams, as ``scripts/attr2048.py`` drives the JAX op.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -191,10 +196,35 @@ def backtrack_compact_plain(M_last, bp, cur_b, cur_bias, cur_rig, w: int,
             compact(cur_rig) if has_rig else cur_rig)
 
 
+# backtrack_compact's device scratch, per (device index, stream): the
+# ticket and progress words (int64, zero when made) and the epoch of the
+# last launch on them (csrc/carve_step.cu: each launch takes the next;
+# two launches on one stream must never share one, hence the lock)
+_SYNC: dict = {}
+_SYNC_LOCK = threading.Lock()
+_EPOCHS = 2 ** 32 - 1
+
+
+def _sync_words(dev: torch.device, stream: int):
+    """(scratch, epoch) for the next backtrack_compact launch on `stream`:
+    the stream's two words and an epoch larger than any earlier launch's on
+    them; past 2^32 - 1 epochs the stream gets fresh words (zero, made on
+    the same stream, so ordered behind its earlier launches)."""
+    with _SYNC_LOCK:
+        entry = _SYNC.get((dev.index, stream))
+        if entry is None or entry[1] == _EPOCHS:
+            entry = [torch.zeros(2, dtype=torch.int64, device=dev), 0]
+            _SYNC[(dev.index, stream)] = entry
+        entry[1] += 1
+        return entry[0], entry[1]
+
+
 def backtrack_compact(M_last, bp, cur_b, cur_bias, cur_rig, w: int,
                       pref_left: bool, has_bias: bool, has_rig: bool):
     """The seam of (M_last, bp) and the planes compacted along it ->
-    (seam [H] i32, cur_b', cur_bias', cur_rig')."""
+    (seam [H] i32, cur_b', cur_bias', cur_rig'). On the card: one launch
+    of csrc/carve_step.cu on the current stream, which must not be
+    capturing a CUDA graph (each launch takes a fresh epoch)."""
     _check_planes(cur_b, cur_bias, cur_rig, has_bias, has_rig)
     H, Wb = cur_b.shape
     dev = cur_b.device
@@ -213,14 +243,19 @@ def backtrack_compact(M_last, bp, cur_b, cur_bias, cur_rig, w: int,
     bias_out = torch.empty_like(cur_bias) if has_bias else None
     rig_out = torch.empty_like(cur_rig) if has_rig else None
     with torch.cuda.device(dev):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("backtrack_compact cannot be captured in a "
+                               "CUDA graph: each launch takes a fresh epoch")
         stream = torch.cuda.current_stream().cuda_stream
+        sync, epoch = _sync_words(dev, stream)
         rc = lib.lqr_backtrack_compact(
             M_last.data_ptr(), bp.data_ptr(), cur_b.data_ptr(),
             cur_bias.data_ptr() if has_bias else None,
             cur_rig.data_ptr() if has_rig else None, int(bool(pref_left)),
             H, Wb, int(w), seam.data_ptr(), b_out.data_ptr(),
             bias_out.data_ptr() if has_bias else None,
-            rig_out.data_ptr() if has_rig else None, stream)
+            rig_out.data_ptr() if has_rig else None, sync.data_ptr(), epoch,
+            stream)
     _build.check(lib, rc, "lqr_backtrack_compact")
     dp_cuda.LAUNCHES["backtrack_compact"] += 1
     return (seam, b_out, bias_out if has_bias else cur_bias,

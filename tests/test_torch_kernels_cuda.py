@@ -542,7 +542,7 @@ _STEP_SHAPES = [
     (40, 250, 256, 231, 1, 6, True, True),
     (64, 300, 384, 300, 3, 1, False, True),
     (16, 1, 128, 1, 0, 4, False, False),
-]
+] + [case[:8] for case in SMOKE.STEP_EDGES if case[8] == "ties"]
 
 
 # dp_energy_forward's cases: the strip kernel's edges (chip_smoke.EDGE_CASES,
@@ -590,11 +590,23 @@ def test_sqrt_rn_matches_fsqrt_rn(cuda):
     assert carve_step.sqrt_rn_mismatches(cuda) == 0
 
 
-@pytest.mark.parametrize("H,W,Wb,w,dx,nrg,has_bias,has_rig", _STEP_SHAPES)
+# backtrack_compact's cases: the step shapes (with chip_smoke.STEP_EDGES'
+# shapes), and STEP_EDGES' maps of one level (ties everywhere) and planes 4
+# bytes past a 16-byte boundary (the scalar compaction)
+_BTC_CASES = ([shape + ("ties",) for shape in _STEP_SHAPES]
+              + [case for case in SMOKE.STEP_EDGES if case[8] != "ties"])
+
+
+@pytest.mark.parametrize("H,W,Wb,w,dx,nrg,has_bias,has_rig,kind",
+                         _BTC_CASES)
 def test_backtrack_compact_matches_plain(cuda, H, W, Wb, w, dx, nrg,
-                                         has_bias, has_rig):
+                                         has_bias, has_rig, kind):
     from lqr_tpu_torch.ops import carve_step
-    b, bias, rig = _step_planes(H + dx, H, W, Wb, cuda)
+    if kind == "ties":
+        b, bias, rig = _step_planes(H + dx, H, W, Wb, cuda)
+    else:
+        b, bias, rig = SMOKE.step_planes(
+            (H, W, Wb, w, dx, nrg, has_bias, has_rig, kind), cuda)
     planes = (b, bias if has_bias else None, rig if has_rig else None)
     for pref in (True, False):
         M, bp = carve_step.dp_energy_forward_plain(*planes, w, pref, dx,
@@ -612,6 +624,92 @@ def test_backtrack_compact_matches_plain(cuda, H, W, Wb, w, dx, nrg,
                 assert g is None and e is None      # an absent plane
             else:
                 assert torch.equal(g, e) and g is not p, pref
+
+
+def _chase_maps(seed, H, Wb, w, device):
+    """An M_last of few levels (ties on purpose, +inf at x >= w) and a bp
+    of steps in {-1, 0, 1} that keeps every path inside [0, w), as a
+    delta_x = 1 DP gives them."""
+    rng = np.random.default_rng(seed)
+    M = np.full(Wb, np.inf, np.float32)
+    M[:w] = rng.integers(0, 4, w)
+    bp = rng.integers(-1, 2, (H, Wb)).astype(np.int8)
+    bp[:, 0] = np.maximum(bp[:, 0], 0)
+    bp[:, w - 1] = np.minimum(bp[:, w - 1], 0)
+    return torch.from_numpy(M).to(device), torch.from_numpy(bp).to(device)
+
+
+def test_backtrack_compact_back_to_back_launches(cuda):
+    """50 launches on one stream, none waiting for another, each on its
+    own M_last and bp but all at the same output pointers and on the same
+    ticket and progress words: each equals its plain version, so no launch
+    read an earlier launch's progress (it would compact along that launch's
+    seam)."""
+    from lqr_tpu_torch.ops import carve_step
+    lib = _build.load()
+    H, Wb = 1024, 2048
+    b, bias, rig = _step_planes(50, H, Wb, Wb, cuda)
+    maps = [_chase_maps(k, H, Wb, Wb - k % 7, cuda) for k in range(50)]
+    seam = torch.empty(H, dtype=torch.int32, device=cuda)
+    outs = [torch.empty_like(b) for _ in range(3)]
+    stream = torch.cuda.current_stream().cuda_stream
+    got = []
+    torch.cuda.synchronize()
+    for k, (M, bp) in enumerate(maps):
+        masks = k % 3 != 0
+        sync, epoch = carve_step._sync_words(cuda, stream)
+        rc = lib.lqr_backtrack_compact(
+            M.data_ptr(), bp.data_ptr(), b.data_ptr(),
+            bias.data_ptr() if masks else None,
+            rig.data_ptr() if masks else None, k % 2, H, Wb, Wb - k % 7,
+            seam.data_ptr(), outs[0].data_ptr(),
+            outs[1].data_ptr() if masks else None,
+            outs[2].data_ptr() if masks else None, sync.data_ptr(), epoch,
+            stream)
+        _build.check(lib, rc, "lqr_backtrack_compact")
+        got.append([seam.clone()] + [o.clone() for o in outs[:1 + 2 * masks]])
+    torch.cuda.synchronize()
+    for k, (M, bp) in enumerate(maps):
+        masks = k % 3 != 0
+        want = carve_step.backtrack_compact_plain(
+            M, bp, b, bias, rig, Wb - k % 7, k % 2 == 1, masks, masks)
+        for g, e in zip(got[k], want):
+            assert torch.equal(g, e), k
+
+
+def test_backtrack_compact_two_streams(cuda):
+    """Two streams launching at once, each on its own map (and its own
+    ticket and progress words), 20 launches each interleaved: every result
+    equals its plain version."""
+    from lqr_tpu_torch.ops import carve_step
+    shapes = ((2048, 2048, True), (777, 3000, False))
+    inputs = []
+    for i, (H, Wb, masks) in enumerate(shapes):
+        planes = _step_planes(60 + i, H, Wb, Wb, cuda)
+        inputs.append((planes, [_chase_maps(100 * i + k, H, Wb, Wb - k, cuda)
+                                for k in range(20)], masks))
+    streams = [torch.cuda.Stream(cuda) for _ in shapes]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for k in range(20):
+        for i, st in enumerate(streams):
+            (b, bias, rig), maps, masks = inputs[i]
+            M, bp = maps[k]
+            with torch.cuda.stream(st):
+                out = carve_step.backtrack_compact(
+                    M, bp, b, bias if masks else None,
+                    rig if masks else None, b.shape[1] - k, k % 2 == 0,
+                    masks, masks)
+                got[i].append([o.clone() for o in out if o is not None])
+    torch.cuda.synchronize()
+    for i, ((b, bias, rig), maps, masks) in enumerate(inputs):
+        for k, (M, bp) in enumerate(maps):
+            want = carve_step.backtrack_compact_plain(
+                M, bp, b, bias, rig, b.shape[1] - k, k % 2 == 0, masks,
+                masks)
+            for g, e in zip(got[i][k], [x for x in want if x is not None]):
+                assert torch.equal(g, e), (i, k)
 
 
 def test_carve_step_at_max_width(cuda):
@@ -637,7 +735,8 @@ def test_carve_step_refused_launches_raise(cuda):
     """Bad arguments never launch: the wrapper refuses delta_x = 11 (past
     fused_ok), and the launchers refuse delta_x = 11, more consumer warps
     than a block pairs, a halo narrower than delta_x * K, and a plane
-    without its output, when called past the wrapper."""
+    without its output, no ticket and progress words or an epoch of 0,
+    when called past the wrapper."""
     from lqr_tpu_torch.ops import _build, carve_step
     lib = _build.load()
     before = dict(dp_cuda.LAUNCHES)
@@ -659,12 +758,19 @@ def test_carve_step_refused_launches_raise(cuda):
         with pytest.raises(RuntimeError, match="launch failed"):
             _build.check(lib, rc, "lqr_dp_energy_forward")
     seam = torch.empty(2, dtype=torch.int32, device=cuda)
-    rc = lib.lqr_backtrack_compact(m.data_ptr(), bp.data_ptr(), b.data_ptr(),
-                                   b.data_ptr(), None, 1, 2, 256, 256,
-                                   seam.data_ptr(), m.data_ptr(), None, None,
-                                   stream)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        _build.check(lib, rc, "lqr_backtrack_compact")
+    sync = torch.zeros(2, dtype=torch.int64, device=cuda)
+    out = torch.empty_like(b)
+    # a plane without its output; no scratch words; epoch 0
+    for bias, bias_out, words, epoch in ((b, None, sync, 1),
+                                         (None, None, None, 1),
+                                         (None, None, sync, 0)):
+        rc = lib.lqr_backtrack_compact(
+            m.data_ptr(), bp.data_ptr(), b.data_ptr(),
+            None if bias is None else bias.data_ptr(), None, 1, 2, 256, 256,
+            seam.data_ptr(), out.data_ptr(), bias_out, None,
+            None if words is None else words.data_ptr(), epoch, stream)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            _build.check(lib, rc, "lqr_backtrack_compact")
     assert dp_cuda.LAUNCHES == before
     torch.cuda.synchronize()
 

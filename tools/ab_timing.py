@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """The end-to-end timings of chip_smoke.py phase 5 for the checkout at ROOT.
 
-    python3 tools/ab_timing.py ROOT LABEL [--kernels]
+    python3 tools/ab_timing.py ROOT LABEL [--kernels | --batch]
 
 Imports ROOT's chip_smoke.py and ROOT's lqr_tpu_torch, builds its kernels,
 and times what phase 5 times: 100 seams at 2048x2048 through both
 extend_map routes and through both modes of the fused step, both routes
 at 1024x768 with masks and at 512x384, BatchCarver.carve on cfg5 and one
 cfg4 wave, and the column-sharded 2048x2048; first the fused step's
-forward kernel (dp_energy_forward) at 2048x2048. With --kernels it times
-instead the DP and backtrack kernels alone (CUDA events, the mean of 50
-launches) at the shapes their routes give them: 2048x2048, 1024x768 with
-rigidity, 512x384. Each line is prefixed with LABEL. To compare two
+kernels (dp_energy_forward, backtrack_compact) at 2048x2048. With
+--kernels it times instead the DP and backtrack kernels alone (CUDA events,
+the mean of 50 launches) at the shapes their routes give them: 2048x2048,
+1024x768 with rigidity, 512x384; with --batch only BatchCarver.carve on
+cfg5 and the cfg4 wave, first in a fresh process. Each line is prefixed
+with LABEL. To compare two
 commits on one card, unpack the other with ``git archive`` and run both in
 turns in one call, one process each: parent, change, change, parent.
 """
@@ -44,19 +46,30 @@ def time_kernels(smoke, dev, label: str) -> None:
 
 
 def time_fused_kernel(smoke, dev, label: str) -> None:
-    """The fused step's forward kernel of ROOT (dp_energy_forward) at the
-    fused loop's first step, 2048x2048 at delta_x 1, without masks."""
+    """The fused step's kernels of ROOT at the fused loop's first step,
+    2048x2048 at delta_x 1: dp_energy_forward without masks, and
+    backtrack_compact on its M_last and bp without and with a bias and a
+    rigidity plane (the mean of 100 launches)."""
+    import numpy as np
     import torch
     from lqr_tpu_torch.core.energy import reader_plane
     from lqr_tpu_torch.ops import carve_step as cs
 
     n = smoke.N
     b = reader_plane(torch.from_numpy(smoke.make_test_image(n)).to(dev), 0)
-    ms = smoke._cuda_ms(
-        lambda: cs.dp_energy_forward(b, None, None, n, True, 1, False, False,
-                                     0), 20)
-    print(f"[{label}] {n}x{n}: dp_energy_forward {ms:.4f} ms on "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
+    fwd = (b, None, None, n, True, 1, False, False, 0)
+    ms = smoke._cuda_ms(lambda: cs.dp_energy_forward(*fwd), 20)
+    M, bp = cs.dp_energy_forward(*fwd)
+    rng = np.random.default_rng(8)
+    bias, rig = (torch.from_numpy(a.astype(np.float32)).to(dev)
+                 for a in rng.integers(0, 8, (2, n, n)) / 8)
+    bt = [smoke._cuda_ms(lambda: cs.backtrack_compact(M, bp, b, *masks, n,
+                                                      True, *flags), 100)
+          for masks, flags in (((None, None), (False, False)),
+                               ((bias, rig), (True, True)))]
+    print(f"[{label}] {n}x{n}: dp_energy_forward {ms:.4f} ms, "
+          f"backtrack_compact {bt[0]:.4f} ms, with bias and rig "
+          f"{bt[1]:.4f} ms on {torch.cuda.get_device_name(0)}", flush=True)
 
 
 def main(argv: list[str]) -> int:
@@ -77,19 +90,22 @@ def main(argv: list[str]) -> int:
     smoke.say = lambda phase, msg: print(f"[{label}] {msg}", flush=True)
     dev = torch.device("cuda", 0)
     gpu = torch.cuda.get_device_name(0)
-    time_fused_kernel(smoke, dev, label)
+    batch_only = argv[2:] == ["--batch"]
+    if not batch_only:
+        time_fused_kernel(smoke, dev, label)
     if argv[2:] == ["--kernels"]:
         time_kernels(smoke, dev, label)
         return 0
     N, seams = smoke.N, smoke.SEAMS
-    smoke.time_routes(dev, f"{N}x{N}", (N, N),
-                      [engine._extend_per_seam, engine._extend_resident,
-                       smoke.fused_split, smoke.fused_inline], seams, gpu)
-    routes = [engine._extend_resident, engine._extend_per_seam]
-    c2 = smoke.cfg2_inputs()
-    smoke.time_routes(dev, "1024x768 with bias and rig", smoke.CFG2, routes,
-                      seams, gpu, c2["bias"], c2["rig"])
-    smoke.time_routes(dev, "512x384", smoke.CFG1, routes, seams, gpu)
+    if not batch_only:
+        smoke.time_routes(dev, f"{N}x{N}", (N, N),
+                          [engine._extend_per_seam, engine._extend_resident,
+                           smoke.fused_split, smoke.fused_inline], seams, gpu)
+        routes = [engine._extend_resident, engine._extend_per_seam]
+        c2 = smoke.cfg2_inputs()
+        smoke.time_routes(dev, "1024x768 with bias and rig", smoke.CFG2,
+                          routes, seams, gpu, c2["bias"], c2["rig"])
+        smoke.time_routes(dev, "512x384", smoke.CFG1, routes, seams, gpu)
     frames, counts = smoke.cfg5_inputs()
     smoke._median_runs("cfg5 BatchCarver.carve",
                        lambda: BatchCarver(frames, device=dev),
@@ -102,6 +118,8 @@ def main(argv: list[str]) -> int:
                        lambda bc: bc.carve(smoke.CFG4[3]),
                        len(wave) * smoke.CFG4[3], "img_seams", gpu)
     del wave
+    if batch_only:
+        return 0
     img = smoke.make_test_image(N)
     mesh = make_mesh(devices=[dev] * smoke.SHARDS, data=1)
     smoke._median_runs(f"column-sharded {N}x{N}",
