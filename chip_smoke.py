@@ -90,6 +90,21 @@ Phases, one line each (any failure exits non-zero):
              both extend_map routes at 1024x768 with masks and at 512x384;
              img_seams/s of BatchCarver.carve on cfg5 and on the cfg4
              wave; us/seam of the column-sharded 2048x2048.
+6. cli     — the batch path above the Carver, file to file through the
+             command line (lqr_tpu_torch.cli), PNGs through the port's
+             codec, the launch counts set to 0 before each call: 2048x2048
+             -> 1948 (the resident kernel) equal to native's
+             materialization u8 for u8; the same with a preservation mask
+             and a rigidity mask (the DP and backtrack kernels, past the
+             gate) equal to native.carve with the same bias and rig fields;
+             cfg1 with --output-target new-layer --seams and with
+             --scaleback --scaleback-mode stdw, the card's file equal to
+             --cpu's byte for byte; 2048 -> 2248 columns (one enlargement
+             pass) equal to native's; checkpoints saved on the card (50
+             seams) and on the CPU (4 seams), loaded on the card and resized
+             to 1948, equal to native.carve's map; then the plain shrink's
+             time to image (median of 3, fresh files: the whole call and
+             its parts) and materialize's time alone.
 
 The card's name and power limit (nvidia-smi) stand on a line of their own;
 the line before the last is a JSON object with one entry per kernel: its
@@ -102,9 +117,11 @@ H100's memory rate and its operations over its f32 rate); the last line is
 from __future__ import annotations
 
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1619,6 +1636,229 @@ def run_sharded_distinct(device) -> dict:
     return launches
 
 
+# Phase 6: the batch path above the Carver, file to file through the
+# command line (lqr_tpu_torch.cli) at the main path's 2048x2048
+CLI_ENLARGE = 200     # columns the enlargement inserts (one pass at 150 %)
+CK_SEAMS = 50         # seams carved on the card before a checkpoint
+CK_CPU_SEAMS = 4      # seams carved on the CPU before a checkpoint
+RIG_MASK_RIGIDITY = 100.0   # --rigidity; render triples it with a rig mask
+
+
+def route_launches(H: int, W: int, has_bias: bool, has_rig: bool,
+                   seams: int) -> dict:
+    """The launches the gate implies for seams seams off an H x W map
+    without a live map: the resident kernel once per chunk of engine.KC,
+    or the DP and backtrack kernels once a seam."""
+    from lqr_tpu_torch.carver import _bucket
+    from lqr_tpu_torch.core import engine
+    from lqr_tpu_torch.ops.carve_resident import resident_ok
+    if resident_ok(H, _bucket(W), has_bias, has_rig):
+        return _only(carve_resident=-(-seams // engine.KC))
+    return _only(dp_forward=seams, backtrack=seams)
+
+
+def cli_masks(n: int, seed: int = 6) -> dict:
+    """The masked run's files and fields: a preservation mask over rows and
+    columns n/4..n/2 (--pres, --pres-offset), a grey rigidity mask on the
+    left third (--rigmask), and the bias and rig planes the Carver builds
+    from them (rigidity tripled, as render's rigidity_init does)."""
+    from lqr_tpu_torch.carver import place_mask_numpy
+    rng = np.random.default_rng(seed)
+    d = {"pres": rng.integers(160, 256, (n // 4, n // 4, 3)).astype(np.uint8),
+         "rigm": rng.integers(0, 256, (n, n // 3, 1)).astype(np.uint8)}
+    d["bias"] = (place_mask_numpy(d["pres"], n, n, n // 4, n // 4)
+                 * np.float32(1.0))
+    d["rig"] = (place_mask_numpy(d["rigm"], n, n, 0, 0)
+                * np.float32(3 * RIG_MASK_RIGIDITY))
+    return d
+
+
+def _cli(argv) -> dict:
+    """cli.main(argv) with the launch counts set to 0 just before it;
+    returns the counts read just after. A non-zero exit raises."""
+    import torch
+    from lqr_tpu_torch import cli
+    torch.cuda.synchronize()
+    reset_launches()
+    rc = cli.main([str(a) for a in argv])
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"cli {argv}: exit code {rc}")
+    return _launches()
+
+
+def _same_file_image(label, path, ref):
+    from lqr_tpu_torch.utils.image_io import load_image
+    got = load_image(str(path))
+    if got.shape != ref.shape or not np.array_equal(got, ref):
+        raise AssertionError(f"{label}: {path.name} {got.shape} differs from "
+                             f"the reference {ref.shape}")
+
+
+def run_cli(device, tmp, vs_main) -> None:
+    """Phase 6: the command line file to file on the card, each output held
+    against the C++ reference (or against --cpu), each run's launches the
+    ones its route's gate implies."""
+    import torch
+    from lqr_tpu_torch import Carver, load_carver, native, save_carver
+    from lqr_tpu_torch.utils.image_io import save_image
+
+    img = make_test_image(N)
+    src = tmp / "in.png"
+    save_image(str(src), img)
+    ref = native.materialize(img, vs_main, N - SEAMS)
+
+    # 1. plain shrink: the resident route
+    launches = _cli([src, N - SEAMS, N, "-o", tmp / "out.png"])
+    _expect_launches("cli shrink", launches,
+                     route_launches(N, N, False, False, SEAMS))
+    _same_file_image("cli shrink", tmp / "out.png", ref)
+    say("cli", f"{N}x{N} -> {N - SEAMS}x{N} file to file: output == "
+        f"native.materialize(img, native.carve(img, {SEAMS})); launches "
+        f"{launches}")
+
+    # 2. masked shrink: preservation and rigidity masks, past the gate
+    m = cli_masks(N)
+    save_image(str(tmp / "pres.png"), m["pres"])
+    save_image(str(tmp / "rig.png"), m["rigm"])
+    masked = _cli([src, N - SEAMS, N, "--pres", tmp / "pres.png",
+                   "--pres-offset", f"{N // 4},{N // 4}", "--pres-coeff",
+                   "1000", "--rigmask", tmp / "rig.png", "--rigidity",
+                   f"{RIG_MASK_RIGIDITY:g}", "-o", tmp / "masked.png"])
+    _expect_launches("cli masked", masked,
+                     route_launches(N, N, True, True, SEAMS))
+    t0 = time.perf_counter()
+    vs_m = native.carve(img, SEAMS, bias=m["bias"], rig=m["rig"])
+    ref_secs = time.perf_counter() - t0
+    _same_file_image("cli masked", tmp / "masked.png",
+                     native.materialize(img, vs_m, N - SEAMS))
+    say("cli", f"{N}x{N} -> {N - SEAMS}x{N} with --pres and --rigmask: "
+        f"output == native (carve with the same bias and rig fields, "
+        f"{ref_secs:.1f} s on one core); launches {masked}")
+
+    # 3. cfg1's image through two output options: the card == --cpu
+    h1, w1 = CFG1
+    save_image(str(tmp / "cfg1.png"), crop_image(CFG1))
+    for j, opts in enumerate((["--output-target", "new-layer", "--seams"],
+                              ["--scaleback", "--scaleback-mode", "stdw"])):
+        outs = []
+        for extra in ([], ["--cpu"]):
+            tag = "cpu" if extra else "gpu"
+            out = tmp / f"cfg1_{j}_{tag}.png"
+            got = _cli([tmp / "cfg1.png", w1 - SEAMS, h1, *opts, *extra,
+                        "-o", out])
+            if not extra:
+                _expect_launches(f"cli cfg1 {opts}", got,
+                                 route_launches(h1, w1, False, False, SEAMS))
+            outs.append(out.read_bytes())
+        if outs[0] != outs[1]:
+            raise AssertionError(f"cli cfg1 {opts}: the card's file differs "
+                                 f"from --cpu's")
+        say("cli", f"cfg1 {w1}x{h1} -> {w1 - SEAMS}x{h1} {' '.join(opts)}: "
+            f"the card's file == --cpu's, byte for byte")
+
+    # 4. enlargement, one pass at the default --enl-step 150
+    grown = _cli([src, N + CLI_ENLARGE, N, "-o", tmp / "grown.png"])
+    _expect_launches("cli enlarge", grown,
+                     route_launches(N, N, False, False, CLI_ENLARGE))
+    vs_g = native.carve(img, CLI_ENLARGE)
+    if not np.array_equal(np.where(vs_g <= SEAMS, vs_g, 0), vs_main):
+        raise AssertionError("native.carve's first seams changed")
+    _same_file_image("cli enlarge", tmp / "grown.png",
+                     native.materialize(img, vs_g, N + CLI_ENLARGE))
+    say("cli", f"{N}x{N} -> {N + CLI_ENLARGE}x{N}: output == "
+        f"native.materialize at the enlarged width; launches {grown}")
+
+    # 5. checkpoints: saved on the card and on the CPU, resumed on the card
+    for dev, k in ((device, CK_SEAMS), ("cpu", CK_CPU_SEAMS)):
+        c = Carver(img, device=dev)
+        c.resize(N - k, N)
+        save_carver(str(tmp / "ck.npz"), c)
+        r = load_carver(str(tmp / "ck.npz"), device="cuda")
+        if (r.depth, r.width, r.device.type) != (k, N - k, device.type):
+            raise AssertionError(f"checkpoint: loaded depth {r.depth} "
+                                 f"width {r.width} on {r.device}")
+        torch.cuda.synchronize()
+        reset_launches()
+        r.resize(N - SEAMS, N)
+        got = r.get_image()
+        resumed = _launches()
+        _expect_launches(f"checkpoint from {dev}", resumed,
+                         _only(carve_resident=1))
+        if not np.array_equal(r.vmap_dump().data, vs_main):
+            raise AssertionError(f"checkpoint from {dev}: the resumed map "
+                                 f"differs from native.carve's")
+        if not np.array_equal(got, ref):
+            raise AssertionError(f"checkpoint from {dev}: the resumed image "
+                                 f"differs from native.materialize")
+        say("cli", f"checkpoint of a carver on {dev} at depth {k}, loaded "
+            f"on the card, resized to {N - SEAMS}: map == native.carve's, "
+            f"image == the shrink's; launches {resumed}")
+
+
+def time_cli(device, tmp, vs_main, gpu) -> dict:
+    """Phase 6: time to image of the plain shrink, synchronized, the median
+    of 3 runs after a warm-up, fresh files each run: the whole cli.main
+    call, then its parts done one by one as cli.run_one does them (decode,
+    init_carver, resize, the write-back's materialize and copy to the host,
+    encode); and materialize alone (CUDA events, mean of 20)."""
+    import torch
+    from lqr_tpu_torch import native
+    from lqr_tpu_torch.config import LqrConfig
+    from lqr_tpu_torch.core import engine
+    from lqr_tpu_torch.image_model import Image
+    from lqr_tpu_torch.render import _write_back, init_carver
+    from lqr_tpu_torch.utils.image_io import load_image, save_image
+
+    img = make_test_image(N)
+    ref = native.materialize(img, vs_main, N - SEAMS)
+    cfg = LqrConfig(new_width=N - SEAMS, new_height=N)
+    names = ("cli", "decode", "init_carver", "resize", "write_back",
+             "encode")
+    runs = {k: [] for k in names}
+    for i in range(4):
+        src, out = tmp / f"t{i}.png", tmp / f"t{i}_out.png"
+        save_image(str(src), img)
+        t = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _cli([src, N - SEAMS, N, "-o", out])
+        t["cli"] = time.perf_counter() - t0
+        _same_file_image("cli timing", out, ref)
+        out.unlink()
+        t0 = time.perf_counter()
+        arr = load_image(str(src))
+        t1 = time.perf_counter()
+        cd = init_carver(Image.from_array(arr), cfg, device=device)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        cd.carver.resize(N - SEAMS, N)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        _write_back(cd, cfg, N - SEAMS, N)
+        t4 = time.perf_counter()
+        save_image(str(out), cd.image.layer_by_name(cd.layer_name).pixels)
+        t5 = time.perf_counter()
+        t.update(decode=t1 - t0, init_carver=t2 - t1, resize=t3 - t2,
+                 write_back=t4 - t3, encode=t5 - t4)
+        _same_file_image("cli timing, by part", out, ref)
+        if i:
+            for k in names:
+                runs[k].append(t[k])
+    med = {k: statistics.median(v) * 1e3 for k, v in runs.items()}
+    st = cd.carver._state
+    mat_ms = _cuda_ms(lambda: engine.materialize_array(
+        st.ref, st.vs, st.ref_w, N - SEAMS, N), 20)
+    say("cli", f"time to image, {N}x{N} PNG -> {N - SEAMS}x{N} PNG, median "
+        f"of 3: cli.main {med['cli']:.3f} ms; by part: decode "
+        f"{med['decode']:.3f}, init_carver {med['init_carver']:.3f}, resize "
+        f"{med['resize']:.3f}, write-back {med['write_back']:.3f}, encode "
+        f"{med['encode']:.3f} ms; runs (ms) "
+        f"{ {k: [round(x * 1e3, 3) for x in v] for k, v in runs.items()} }; "
+        f"materialize alone {mat_ms:.4f} ms; on {gpu}")
+    return {**med, "materialize": mat_ms}
+
+
 def _median_runs(label, make, run, unit_count, unit, gpu) -> float:
     """Median seconds of three synchronized runs, each on fresh state from
     make() (outside the timed window), after a warm-up."""
@@ -1726,6 +1966,10 @@ def main() -> int:
     _median_runs(f"column-sharded {N}x{N} on {SHARDS} shards of one card, "
                  f"{SEAMS} seams", lambda: BatchCarver([img], mesh=mesh),
                  lambda bc: bc.carve(SEAMS), SEAMS, "seam", gpu)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run_cli(device, pathlib.Path(tmp), vs_main)
+        time_cli(device, pathlib.Path(tmp), vs_main, gpu)
 
     replaces = {"dp_forward": "lqr_tpu/ops/dp_pallas.py:351",
                 "backtrack": "lqr_tpu/ops/dp_pallas.py:547",

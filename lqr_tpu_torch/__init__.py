@@ -10,14 +10,27 @@ names mirror it:
 - ``lqr_tpu_torch.parallel`` — ``BatchCarver`` and the sharded resize.
 - ``lqr_tpu_torch.native``  — the C++ reference carver (ctypes).
 - ``lqr_tpu_torch.convert`` — state exchange with the JAX package.
+- ``lqr_tpu_torch.render``  — orchestration: output targets, scaleback,
+  aux layers, seam-map output.
+- ``lqr_tpu_torch.checkpoint`` — save/resume a carver (the JAX format).
+- ``lqr_tpu_torch.gap``     — keyframe interpolation (GAP iterator).
+- ``lqr_tpu_torch.cli``     — the batch command line (``lqr-tpu-torch``).
 
 It imports torch and numpy, never jax or lqr_tpu.
 """
 
-from .config import EnergyFunc, ResizeOrder
+from .config import (LqrConfig, SeamColors, EnergyFunc, ResizeOrder,
+                     OutputTarget, ScalebackMode, MaskBehavior, AuxLayerType)
 from .carver import Carver, VMap
+from .checkpoint import save_carver, load_carver
 from .parallel import BatchCarver
 from .errors import LqrError, LqrConfigError, LqrImageError, LqrStateError
 
-__all__ = ["Carver", "VMap", "BatchCarver", "EnergyFunc", "ResizeOrder",
-           "LqrError", "LqrConfigError", "LqrImageError", "LqrStateError"]
+__version__ = "0.3.0"
+
+__all__ = [
+    "LqrConfig", "SeamColors", "EnergyFunc", "ResizeOrder", "OutputTarget",
+    "ScalebackMode", "MaskBehavior", "AuxLayerType", "Carver", "VMap",
+    "BatchCarver", "save_carver", "load_carver", "LqrError",
+    "LqrConfigError", "LqrImageError", "LqrStateError", "__version__",
+]

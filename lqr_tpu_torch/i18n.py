@@ -5,7 +5,8 @@ Same lookup contract as ``lqr_tpu.i18n``: ``LQR_TPU_LOCALE_FILE``, then
 ``LC_ALL`` / ``LC_MESSAGES`` / ``LANG``, then the bundled catalogs. The
 bundled catalogs are the JAX package's ``lqr_tpu/locale/*.json``, read by
 path (importing ``lqr_tpu`` would import jax). An untranslated msgid
-passes through unchanged.
+passes through unchanged; ``N_`` marks a msgid for extraction without
+translating it.
 """
 
 from __future__ import annotations
@@ -25,6 +26,15 @@ def _lang() -> str:
         if v and v != "C":
             return v.split(":")[0].split(".")[0]
     return ""
+
+
+def available_languages() -> list:
+    """Language codes with a bundled catalog."""
+    try:
+        return sorted(f[:-5] for f in os.listdir(BUNDLED_DIR)
+                      if f.endswith(".json"))
+    except OSError:
+        return []
 
 
 def _find_catalog() -> str | None:
@@ -69,3 +79,9 @@ def reset():
 def _(msgid: str) -> str:
     """gettext(): translate a user-facing string."""
     return _load().get(msgid, msgid)
+
+
+def N_(msgid: str) -> str:
+    """gettext_noop(): mark a string for extraction without translating
+    at definition time; translate later with ``_()``."""
+    return msgid

@@ -1,5 +1,6 @@
-"""The port stands alone: importing lqr_tpu_torch and carving on the CPU
-never imports jax or lqr_tpu."""
+"""The port stands alone: importing lqr_tpu_torch, carving on the CPU,
+running its command line (--cpu) file to file and saving and loading a
+checkpoint never import jax or lqr_tpu."""
 
 import ast
 import pathlib
@@ -26,6 +27,16 @@ b.carve([2, 3])
 s = lqr_tpu_torch.BatchCarver([img], mesh=make_mesh(devices=["cpu"] * 2, data=1))
 s.carve(2)
 assert (s.state.vs == b.state.vs[:1]).all()
+from lqr_tpu_torch import cli, load_carver, save_carver
+from lqr_tpu_torch.utils.image_io import load_image, save_image
+save_image("in.png", img)
+assert cli.main(["in.png", "30", "10", "-o", "out.png", "--cpu"]) == 0
+assert load_image("out.png").shape == (10, 30, 3)
+save_carver("ck.npz", c)
+k = load_carver("ck.npz", device="cpu")
+k.resize(30, 12)
+c.resize(30, 12)
+assert (k.get_image() == c.get_image()).all()
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "lqr_tpu"))
 assert not leaked, leaked

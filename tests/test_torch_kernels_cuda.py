@@ -800,3 +800,26 @@ def test_carve_step_loop_cuda_matches_native(cuda, fuse):
     np.testing.assert_array_equal(
         engine.materialize(cfg, got, w - k, 384).cpu().numpy()[:, :w - k],
         native.materialize(img, vs, w - k))
+
+
+@pytest.mark.parametrize("masks", [False, True])
+def test_cli_on_the_card_matches_cpu(cuda, tmp_path, masks):
+    """The command line file to file on the card: byte-equal to --cpu, and
+    the carve went through a kernel (the resident one without masks at this
+    size, and with them: the gate admits 96 x 160 either way)."""
+    from lqr_tpu_torch import cli
+    from lqr_tpu_torch.utils.image_io import save_image
+    img = SMOKE.crop_image((96, 160))
+    save_image(str(tmp_path / "in.png"), img)
+    args = [str(tmp_path / "in.png"), "130", "90", "--seams",
+            "--output-target", "new-layer"]
+    if masks:
+        save_image(str(tmp_path / "m.png"), img[20:60, 30:90])
+        args += ["--pres", str(tmp_path / "m.png"), "--pres-offset", "30,20",
+                 "--rigmask", str(tmp_path / "m.png"), "--rigidity", "50"]
+    assert cli.main(args + ["-o", str(tmp_path / "cpu.png"), "--cpu"]) == 0
+    SMOKE.reset_launches()
+    assert cli.main(args + ["-o", str(tmp_path / "gpu.png")]) == 0
+    assert dp_cuda.LAUNCHES["carve_resident"] == 2       # one an axis
+    assert ((tmp_path / "gpu.png").read_bytes()
+            == (tmp_path / "cpu.png").read_bytes())
