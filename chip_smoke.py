@@ -105,6 +105,22 @@ Phases, one line each (any failure exits non-zero):
              to 1948, equal to native.carve's map; then the plain shrink's
              time to image (median of 3, fresh files: the whole call and
              its parts) and materialize's time alone.
+7. interactive — the interactive session and the plugin's run modes on the
+             main path's 2048x2048, the launch counts set to 0 before each
+             step: InteractiveSession + set_size(1948) (the resident
+             kernel), lookups at 2000 and 2100 (no launch), growth to 1900
+             (the resident kernel), reset_size (the image itself), two
+             seam-map dumps into one layer, reset_map and a vertical map
+             (the resident kernel), each map and layer equal to native's;
+             run_plugin INTERACTIVE with a painted preservation mask and
+             rigidity mask (past the gate: the per-seam kernels) equal to
+             native.carve with the Carver's fields, replayed by
+             WITH_LAST_VALS on a fresh copy, and the preview with the
+             masks on. Then the times: the first map, retarget_ms of a
+             lookup and of an extension, a lookup and an extension under
+             profiling.trace (its span and the resident kernel in the
+             trace), the masked run_plugin in both modes, and its
+             write-back by part.
 
 The card's name and power limit (nvidia-smi) stand on a line of their own;
 the line before the last is a JSON object with one entry per kernel: its
@@ -1319,16 +1335,16 @@ def time_batched_cfg4(device) -> float:
     return ms
 
 
-# The H100 SXM's published peaks (NVIDIA's data sheet, 700 W): device
-# memory rate and float32 rate outside the tensor cores.
-HBM_BYTES_S = 3.35e12
+# The H100 SXM's published float32 rate outside the tensor cores
+# (NVIDIA's data sheet, 700 W); its memory rate is profiling.HBM_GBPS's.
 F32_OPS_S = 67e12
 
 
 def _bound(nbytes: float, ops: float):
-    """(least ms, what bounds it): the larger of the bytes over the memory
-    rate and the operations over the f32 rate."""
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    """(least ms, what bounds it): the larger of the bytes over the H100's
+    memory rate and the operations over its f32 rate."""
+    from lqr_tpu_torch.profiling import HBM_GBPS
+    t_bytes = nbytes / (HBM_GBPS["h100 80gb hbm3"] * 1e9) * 1e3
     t_ops = ops / F32_OPS_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -1859,6 +1875,398 @@ def time_cli(device, tmp, vs_main, gpu) -> dict:
     return {**med, "materialize": mat_ms}
 
 
+# Phase 7: the interactive session and the masked run_plugin at the main
+# path's 2048x2048
+GROW = 48             # seams the map grows past its depth (1948 -> 1900)
+LOOKUP_AT = (2000, 2100)  # widths inside the map's range [1948, 2148]
+LOOKUPS = 20          # timed set_size calls inside the map
+EXTEND_BY = 10        # seams past the depth a timed extension carves
+EXTENSIONS = 5        # timed extensions in a row
+PLUGIN_RIGIDITY = 100.0   # the dialog's rigidity; render triples it
+
+
+def plugin_regions(n: int) -> dict:
+    """The regions the dialog callback paints: the preservation mask over
+    the centred quarter (rows and columns n/4..3n/4), the rigidity mask
+    over the left third."""
+    pres = np.zeros((n, n), bool)
+    pres[n // 4:3 * n // 4, n // 4:3 * n // 4] = True
+    rig = np.zeros((n, n), bool)
+    rig[:, :n // 3] = True
+    return {"pres": pres, "rig": rig}
+
+
+def paint_masks(open_session, regions) -> None:
+    """Paint the preservation and the rigidity mask, each in the mask-edit
+    session that open_session(kind) opens on a new layer, and keep both."""
+    from lqr_tpu_torch.config import AuxLayerType
+    for kind, key in ((AuxLayerType.PRES, "pres"),
+                      (AuxLayerType.RIGMASK, "rig")):
+        with open_session(kind) as m:
+            m.paint(regions[key])
+
+
+def plugin_image(img, regions):
+    """A fresh Image of img with both masks painted in their own layers,
+    named as the dialog's New button names them."""
+    from lqr_tpu_torch.image_model import Image
+    from lqr_tpu_torch.masks import edit_mask
+    image = Image.from_array(img)
+    paint_masks(lambda kind: edit_mask(image, kind), regions)
+    return image
+
+
+def plugin_fields(image, n: int) -> dict:
+    """The bias and rig fields the Carver builds from plugin_image's
+    layers (pres_coeff 1000, the rigidity tripled by rigidity_init)."""
+    from lqr_tpu_torch.carver import place_mask_numpy
+    pres = image.layer_by_name("preservation mask layer").pixels
+    rig = image.layer_by_name("rigidity mask layer").pixels
+    return {"bias": place_mask_numpy(pres, n, n, 0, 0) * np.float32(1.0),
+            "rig": place_mask_numpy(rig, n, n, 0, 0)
+            * np.float32(3 * PLUGIN_RIGIDITY)}
+
+
+def plugin_dialog(regions, width: int):
+    """The dialog callback of phase 7's INTERACTIVE run: first a New
+    preservation mask and a New rigidity mask, each painted and kept
+    (WORK_ON_AUX_LAYER); then the size (the stored 100x100 reset to the
+    image, the width set) and the rigidity, and OK."""
+    from lqr_tpu_torch.dialog import Response
+    calls = []
+
+    def respond(dialog):
+        calls.append(1)
+        if len(calls) == 1:
+            paint_masks(dialog.new_mask, regions)
+            return Response.WORK_ON_AUX_LAYER
+        dialog.reset_size_to_image()
+        dialog.set_new_size(width=width)
+        dialog.cfg = dialog.cfg.replace(rigidity=PLUGIN_RIGIDITY)
+        return Response.OK
+    return respond
+
+
+def _counted(label, fn, want):
+    """fn() with the launch counts set to 0 just before it; the counts
+    read just after must be want. Returns fn's result and the counts."""
+    import torch
+    torch.cuda.synchronize()
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = _launches()
+    _expect_launches(label, launches, want)
+    return out, launches
+
+
+def _same_pixels(label, got, want):
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError(f"{label}: pixels {got.shape} differ from the "
+                             f"reference {want.shape}")
+
+
+def _live_map(sess) -> np.ndarray:
+    """The session's visibility map in its own orientation, without
+    recording it (vmap_dump would hand it to the next seam-map dump)."""
+    st = sess.cd.carver._state
+    return st.vs[:, :st.ref_w].cpu().numpy()
+
+
+def run_interactive(device, vs_main, tmp) -> None:
+    """Phase 7, steps 1-7: an InteractiveSession at 2048x2048 on the card
+    (map build, lookups, growth, reset, dumps, a vertical map) and
+    run_plugin INTERACTIVE with two painted masks, then WITH_LAST_VALS,
+    each step's launches the ones its route implies, each image equal to
+    the C++ reference's (native.carve's on worker threads meanwhile)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from lqr_tpu_torch import native, preview
+    from lqr_tpu_torch.config import SeamColors
+    from lqr_tpu_torch.dialog import RunMode, run_plugin
+    from lqr_tpu_torch.image_model import Image
+    from lqr_tpu_torch.settings import SettingsStore
+    from lqr_tpu_torch.vmap_render import render_vmap
+
+    img = make_test_image(N)
+    img_t = np.ascontiguousarray(img.transpose(1, 0, 2))
+    regions = plugin_regions(N)
+    fields = plugin_fields(plugin_image(img, regions), N)
+    w1, deep = N - SEAMS, SEAMS + GROW
+    none = _only()
+    with ThreadPoolExecutor(3) as pool:
+        f_deep = pool.submit(native.carve, img, deep)
+        f_vert = pool.submit(native.carve, img_t, SEAMS)
+        f_mask = pool.submit(native.carve, img, SEAMS, **fields)
+
+        def bg(sess):
+            return sess.image.layer_by_name("Background").pixels
+
+        # 1. the first map: the resident kernel
+        sess, launches = _counted("interactive map", lambda: _new_session(
+            img, device, w1), route_launches(N, N, False, False, SEAMS))
+        if not np.array_equal(_live_map(sess), vs_main):
+            raise AssertionError("interactive map differs from native.carve")
+        _same_pixels("interactive map", bg(sess),
+                     native.materialize(img, vs_main, w1))
+        say("interactive", f"InteractiveSession + set_size({w1}, {N}): map "
+            f"== native.carve, layer == native.materialize; launches "
+            f"{launches}")
+
+        # 2. lookups inside the map: no kernel
+        for w in LOOKUP_AT:
+            _counted(f"lookup {w}", lambda: sess.set_size(w, N), none)
+            _same_pixels(f"lookup {w}", bg(sess),
+                         native.materialize(img, vs_main, w))
+        say("interactive", f"set_size at widths {LOOKUP_AT}: no launch; "
+            f"layers == native.materialize of the same map")
+
+        # 3. the map grows by GROW seams
+        _counted("grow", lambda: sess.set_size(N - deep, N),
+                 route_launches(N, N, False, False, GROW))
+        vs_deep = f_deep.result()
+        if not np.array_equal(np.where(vs_deep <= SEAMS, vs_deep, 0),
+                              vs_main):
+            raise AssertionError("native.carve's first seams changed")
+        if not np.array_equal(_live_map(sess), vs_deep):
+            raise AssertionError(f"grown map differs from native.carve("
+                                 f"img, {deep})")
+        _same_pixels("grow", bg(sess), native.materialize(img, vs_deep,
+                                                          N - deep))
+        say("interactive", f"set_size({N - deep}, {N}): depth {SEAMS} -> "
+            f"{deep} on carve_resident (1 launch); map == native.carve("
+            f"img, {deep}), layer == its materialization")
+
+        # 4. back to the reference size: the image itself
+        _counted("reset_size", sess.reset_size, none)
+        _same_pixels("reset_size", bg(sess), img)
+
+        # 5. the seam map, dumped twice into one layer
+        for _ in range(2):
+            if not _counted("dump", sess.dump_seam_map, none)[0]:
+                raise AssertionError("dump_seam_map returned False")
+        dumps = [l for l in sess.image.layers
+                 if l.name == "Background seam map"]
+        if len(dumps) != 1:
+            raise AssertionError(f"{len(dumps)} seam-map layers, expected 1")
+        _same_pixels("dump", dumps[0].pixels,
+                     render_vmap(vs_deep, deep, SeamColors()))
+        say("interactive", "reset_size: layer == img; dump_seam_map twice: "
+            "one 'Background seam map' layer == render_vmap(native's map); "
+            "no launch")
+
+        # 6. flatten, then a vertical map
+        _counted("reset_map", sess.reset_map, none)
+        _counted("vertical", lambda: sess.set_size(N, w1),
+                 route_launches(N, N, False, False, SEAMS))
+        vs_vert = f_vert.result()
+        if sess.map_info().orientation != 1 or not np.array_equal(
+                _live_map(sess), vs_vert):
+            raise AssertionError("vertical map differs from native.carve "
+                                 "of the transposed image")
+        _same_pixels("vertical", bg(sess), native.materialize(
+            img_t, vs_vert, w1).transpose(1, 0, 2))
+        say("interactive", f"reset_map, set_size({N}, {w1}): a vertical map "
+            f"on carve_resident (1 launch) == native.carve of the "
+            f"transposed image, layer == its materialization")
+        del sess
+
+        # 7. run_plugin, INTERACTIVE with two painted masks, then replayed
+        store = SettingsStore(tmp / "plugin.json")
+        image = Image.from_array(img)
+        masked = route_launches(N, N, True, True, SEAMS)
+        (out, cfg), _ = _counted(
+            "run_plugin INTERACTIVE", lambda: run_plugin(
+                image, RunMode.INTERACTIVE, store=store,
+                dialog_driver=plugin_dialog(regions, w1), device=device),
+            masked)
+        vs_mask = f_mask.result()
+    if (cfg.pres_layer, cfg.rigmask_layer) != ("preservation mask layer",
+                                               "rigidity mask layer"):
+        raise AssertionError(f"run_plugin masks {cfg.pres_layer!r}, "
+                             f"{cfg.rigmask_layer!r}")
+    ref = plugin_image(img, regions)
+    for layer in ref.layers:
+        _same_pixels(f"run_plugin {layer.name}",
+                     out.layer_by_name(layer.name).pixels,
+                     native.materialize(layer.pixels, vs_mask, w1))
+    say("interactive", f"run_plugin INTERACTIVE ({N}x{N} -> {w1}, a painted "
+        f"preservation mask and rigidity mask, rigidity "
+        f"{PLUGIN_RIGIDITY:g}): the image and both masks == native "
+        f"(carve with the Carver's bias and rig fields); launches {masked}")
+    (again, _), _ = _counted("run_plugin WITH_LAST_VALS", lambda: run_plugin(
+        ref, RunMode.WITH_LAST_VALS, store=store, device=device), masked)
+    for layer in out.layers:
+        _same_pixels(f"replay {layer.name}",
+                     again.layer_by_name(layer.name).pixels, layer.pixels)
+    fresh = plugin_image(img, regions)
+    on = preview(fresh, cfg)
+    off = preview(fresh, cfg, pres_on=False, rigmask_on=False)
+    side = int(N / max(N / 200, 1.0))         # 200 at 2048: the 300x200 law
+    if on.shape != (side, side, 4):
+        raise AssertionError(f"preview shape {on.shape}")
+    a, b = side // 2, side // 20              # centre; near the top left
+    for key, (y, x, ch) in {"pres": (a, a, 1), "rig": (b, b, 2)}.items():
+        if on[y, x, ch] <= off[y, x, ch]:
+            raise AssertionError(f"preview: no {key} tint at ({y}, {x})")
+    if not np.array_equal(on[b, side - 1 - b], off[b, side - 1 - b]):
+        raise AssertionError("preview: an uncovered pixel changed")
+    say("interactive", f"run_plugin WITH_LAST_VALS on a fresh copy == the "
+        f"interactive run, every layer; launches {masked}; preview "
+        f"{on.shape}, the masks tint their pixels")
+
+
+def _ms(fn) -> float:
+    """Milliseconds of fn(), synchronized before and after."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _med(label, runs, gpu) -> float:
+    med = statistics.median(runs)
+    say("interactive", f"{label}: median {med:.3f} ms of "
+        f"{[round(x, 3) for x in runs]} on {gpu}")
+    return med
+
+
+def time_interactive(device, tmp, gpu) -> None:
+    """Phase 7, step 8, on the card, synchronized around each call: the
+    first map (InteractiveSession + set_size, fresh sessions, median of 3
+    after a warm-up); retarget_ms of a lookup (LOOKUPS set_size calls
+    inside the map: the resize and the write-back to the host) and of an
+    extension (EXTEND_BY seams past the depth, EXTENSIONS in a row); a
+    lookup and an extension under profiling.trace, each in an
+    annotate("retarget") span, the trace holding the span and the resident
+    kernel; run_plugin with both masks, INTERACTIVE and WITH_LAST_VALS
+    (median of 3 after a warm-up, fresh images); and the replay by part
+    (init_carver, resize, the write-back: one materialization for the
+    image, one per aux layer)."""
+    import torch
+    from lqr_tpu_torch import profiling
+    from lqr_tpu_torch.dialog import RunMode, run_plugin
+    from lqr_tpu_torch.image_model import Image
+    from lqr_tpu_torch.render import _write_back, init_carver
+    from lqr_tpu_torch.settings import (
+        SettingsStore, retrieve_vals_use_aux_layers_names)
+
+    img = make_test_image(N)
+    w1 = N - SEAMS
+    first = []
+    for i in range(4):
+        box = []
+        ms = _ms(lambda: box.append(_new_session(img, device, w1)))
+        if i:
+            first.append(ms)
+    sess = box[0]
+    _med(f"first map, InteractiveSession + set_size({w1}, {N}) at {N}x{N}",
+         first, gpu)
+
+    widths = [w1 + 10 * (j + 1) for j in range(LOOKUPS)]
+    _ms(lambda: sess.set_size(w1 + 5, N))               # warm-up
+    reset_launches()
+    looks = [_ms(lambda: sess.set_size(w, N)) for w in widths]
+    _expect_launches("timed lookups", _launches(), _only())
+    _med(f"retarget_ms of a lookup, {LOOKUPS} set_size calls at widths "
+         f"{widths[0]}..{widths[-1]} (map depth {SEAMS})", looks, gpu)
+    _med("of it get_image alone (materialize + copy to the host)",
+         [_ms(sess.cd.carver.get_image) for _ in range(5)], gpu)
+    layer = sess.image.layer_by_name("Background")
+    _med(
+        "of it the layer's canvas resize alone (Layer.resize, before "
+        "get_image replaces its pixels)",
+        [_ms(lambda: layer.resize(layer.width, N, 0, 0)) for _ in range(5)],
+        gpu)
+
+    targets = [w1 - EXTEND_BY * (j + 1) for j in range(EXTENSIONS)]
+    reset_launches()
+    exts = [_ms(lambda: sess.set_size(w, N)) for w in targets]
+    _expect_launches("timed extensions", _launches(),
+                     _only(carve_resident=EXTENSIONS))
+    _med(f"retarget_ms of an extension by {EXTEND_BY} seams past the "
+         f"depth, {EXTENSIONS} in a row (to {targets[-1]})", exts, gpu)
+
+    with profiling.trace(tmp / "trace") as path:
+        for w in (N, targets[-1] - EXTEND_BY):
+            with profiling.annotate("retarget"):
+                sess.set_size(w, N)
+        torch.cuda.synchronize()
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = [e for e in events if e.get("name") == "retarget"]
+    kernels = [e for e in events if "carve_resident" in e.get("name", "")
+               and str(e.get("cat", "")).lower() == "kernel"]
+    if not spans or not kernels:
+        raise AssertionError(f"trace {path.name}: {len(spans)} 'retarget' "
+                             f"spans, {len(kernels)} carve_resident kernels")
+    say("interactive", f"profiling.trace of a lookup and an extension: "
+        f"{len(spans)} 'retarget' spans ({[e.get('dur') for e in spans]} "
+        f"us), {len(kernels)} carve_resident kernel "
+        f"({[e.get('dur') for e in kernels]} us) in {path.name} "
+        f"({path.stat().st_size} bytes) on {gpu}")
+    del sess
+
+    regions = plugin_regions(N)
+    interactive, replay = [], []
+    reset_launches()
+    for i in range(4):
+        image = Image.from_array(img)
+        store = SettingsStore(tmp / f"timed{i}.json")
+        t = _ms(lambda: run_plugin(
+            image, RunMode.INTERACTIVE, store=store,
+            dialog_driver=plugin_dialog(regions, w1), device=device))
+        image = plugin_image(img, regions)
+        r = _ms(lambda: run_plugin(image, RunMode.WITH_LAST_VALS,
+                                   store=store, device=device))
+        if i:
+            interactive.append(t)
+            replay.append(r)
+    _expect_launches("timed run_plugin", _launches(),
+                     _only(dp_forward=8 * SEAMS, backtrack=8 * SEAMS))
+    _med(
+        f"masked run_plugin INTERACTIVE end to end ({N}x{N} -> {w1}, the "
+        f"dialog painting both masks, per-seam kernels)", interactive, gpu)
+    _med(
+        "masked run_plugin WITH_LAST_VALS end to end (the masks already in "
+        "the image)", replay, gpu)
+
+    parts = {"init_carver": [], "resize": [], "write_back": []}
+    for i in range(4):
+        image = plugin_image(img, regions)
+        cfg, _ = retrieve_vals_use_aux_layers_names(store, image)
+        box = []
+        t = {"init_carver": _ms(lambda: box.append(
+            init_carver(image, cfg, device=device)))}
+        cd = box[0]
+        t["resize"] = _ms(lambda: cd.carver.resize(w1, N))
+        t["write_back"] = _ms(lambda: _write_back(cd, cfg, w1, N))
+        if i:
+            for k, v in t.items():
+                parts[k].append(v)
+    n_aux = len(cd.aux_names)
+    _med(
+        "of the replay init_carver (both masks placed on the host, the "
+        "planes to the card)", parts["init_carver"], gpu)
+    _med(f"of the replay resize ({SEAMS} seams on the per-seam kernels)",
+         parts["resize"], gpu)
+    _med(
+        f"of the replay the write-back with {n_aux} aux layers (1 + "
+        f"{n_aux} materializations)", parts["write_back"], gpu)
+    _med("  get_image alone", [_ms(cd.carver.get_image)
+                               for _ in range(4)][1:], gpu)
+    _med("  get_aux(0) alone", [_ms(lambda: cd.carver.get_aux(0))
+                                for _ in range(4)][1:], gpu)
+
+
+def _new_session(img, device, width):
+    from lqr_tpu_torch.image_model import Image
+    from lqr_tpu_torch.interactive import InteractiveSession
+    sess = InteractiveSession(Image.from_array(img), device=device)
+    sess.set_size(width, N)
+    return sess
+
+
 def _median_runs(label, make, run, unit_count, unit, gpu) -> float:
     """Median seconds of three synchronized runs, each on fresh state from
     make() (outside the timed window), after a warm-up."""
@@ -1970,6 +2378,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         run_cli(device, pathlib.Path(tmp), vs_main)
         time_cli(device, pathlib.Path(tmp), vs_main, gpu)
+    with tempfile.TemporaryDirectory() as tmp:
+        run_interactive(device, vs_main, pathlib.Path(tmp))
+        time_interactive(device, pathlib.Path(tmp), gpu)
 
     replaces = {"dp_forward": "lqr_tpu/ops/dp_pallas.py:351",
                 "backtrack": "lqr_tpu/ops/dp_pallas.py:547",

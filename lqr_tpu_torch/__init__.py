@@ -15,6 +15,11 @@ names mirror it:
 - ``lqr_tpu_torch.checkpoint`` — save/resume a carver (the JAX format).
 - ``lqr_tpu_torch.gap``     — keyframe interpolation (GAP iterator).
 - ``lqr_tpu_torch.cli``     — the batch command line (``lqr-tpu-torch``).
+- ``lqr_tpu_torch.masks``, ``preview`` — mask authoring and the preview
+  compositor.
+- ``lqr_tpu_torch.interactive`` — the live interactive session.
+- ``lqr_tpu_torch.dialog``  — the headless main dialog and ``run_plugin``.
+- ``lqr_tpu_torch.profiling`` — traces, spans, the per-seam roofline.
 
 It imports torch and numpy, never jax or lqr_tpu.
 """
@@ -25,6 +30,8 @@ from .carver import Carver, VMap
 from .checkpoint import save_carver, load_carver
 from .parallel import BatchCarver
 from .errors import LqrError, LqrConfigError, LqrImageError, LqrStateError
+from .masks import colour_from_type, new_mask_layer, edit_mask
+from .preview import preview
 
 __version__ = "0.3.0"
 
@@ -32,5 +39,6 @@ __all__ = [
     "LqrConfig", "SeamColors", "EnergyFunc", "ResizeOrder", "OutputTarget",
     "ScalebackMode", "MaskBehavior", "AuxLayerType", "Carver", "VMap",
     "BatchCarver", "save_carver", "load_carver", "LqrError",
-    "LqrConfigError", "LqrImageError", "LqrStateError", "__version__",
+    "LqrConfigError", "LqrImageError", "LqrStateError", "colour_from_type",
+    "new_mask_layer", "edit_mask", "preview", "__version__",
 ]

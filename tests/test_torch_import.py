@@ -1,8 +1,11 @@
 """The port stands alone: importing lqr_tpu_torch, carving on the CPU,
-running its command line (--cpu) file to file and saving and loading a
-checkpoint never import jax or lqr_tpu."""
+running its command line (--cpu) file to file, saving and loading a
+checkpoint, an interactive session's step, a preview and the mask, dialog
+and profiling modules never import jax or lqr_tpu; and the port exports
+every name lqr_tpu does."""
 
 import ast
+import json
 import pathlib
 import subprocess
 import sys
@@ -14,6 +17,7 @@ torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 _PROBE = """
+import json
 import sys
 import numpy as np
 import lqr_tpu_torch
@@ -37,6 +41,12 @@ k = load_carver("ck.npz", device="cpu")
 k.resize(30, 12)
 c.resize(30, 12)
 assert (k.get_image() == c.get_image()).all()
+from lqr_tpu_torch import dialog, interactive, masks, profiling
+from lqr_tpu_torch.image_model import Image
+s = interactive.InteractiveSession(Image.from_array(img), device="cpu")
+assert s.set_size(30, 12).layer_by_name("Background").width == 30
+assert lqr_tpu_torch.preview(s.image, s.cfg).shape == (12, 30, 4)
+print(json.dumps(lqr_tpu_torch.__all__))
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "lqr_tpu"))
 assert not leaked, leaked
@@ -51,7 +61,11 @@ def test_import_and_carve_without_jax(tmp_path):
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip().endswith("ok")
+    lines = proc.stdout.strip().splitlines()
+    assert lines[-1] == "ok"
+    import lqr_tpu
+    missing = set(lqr_tpu.__all__) - set(json.loads(lines[-2]))
+    assert not missing, missing
 
 
 def test_no_source_imports_jax_or_lqr_tpu():

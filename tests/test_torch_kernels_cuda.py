@@ -823,3 +823,34 @@ def test_cli_on_the_card_matches_cpu(cuda, tmp_path, masks):
     assert dp_cuda.LAUNCHES["carve_resident"] == 2       # one an axis
     assert ((tmp_path / "gpu.png").read_bytes()
             == (tmp_path / "cpu.png").read_bytes())
+
+
+def test_interactive_session_on_the_card_matches_cpu(cuda):
+    """An interactive session on the card equals one on the CPU after every
+    step (shrink, a lookup, map growth, enlargement, reset, a vertical map,
+    a dump); lookups inside the map launch no kernel."""
+    from lqr_tpu_torch.image_model import Image
+    from lqr_tpu_torch.interactive import InteractiveSession
+    img = SMOKE.crop_image((96, 160))
+    ss = {dev: InteractiveSession(Image.from_array(img), device=dev)
+          for dev in (cuda, "cpu")}
+    steps = [(lambda s: s.set_size(130, 96), True),
+             (lambda s: s.set_size(150, 96), False),
+             (lambda s: s.set_size(120, 96), True),
+             (lambda s: s.set_size(190, 96), False),
+             (lambda s: s.reset_size(), False),
+             (lambda s: s.reset_map(), False),
+             (lambda s: s.set_size(160, 80), True),
+             (lambda s: s.dump_seam_map(), False)]
+    for j, (step, launches) in enumerate(steps):
+        step(ss["cpu"])
+        SMOKE.reset_launches()
+        step(ss[cuda])
+        torch.cuda.synchronize()
+        assert (sum(dp_cuda.LAUNCHES.values()) > 0) == launches, j
+        got, want = ss[cuda].image, ss["cpu"].image
+        assert [l.name for l in got.layers] == [l.name for l in want.layers]
+        for lg, lw in zip(got.layers, want.layers):
+            np.testing.assert_array_equal(lg.pixels, lw.pixels,
+                                          err_msg=f"step {j} {lg.name}")
+        assert ss[cuda].map_info() == ss["cpu"].map_info(), j
