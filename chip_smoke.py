@@ -121,6 +121,20 @@ Phases, one line each (any failure exits non-zero):
              profiling.trace (its span and the resident kernel in the
              trace), the masked run_plugin in both modes, and its
              write-back by part.
+8. entry points — the port's measuring programs, called in-process, the
+             launch counts set to 0 before each, each JSON line printed
+             after "[entry]": lqr_tpu_torch.bench (the 2048x2048, 100-seam
+             metric: one resident launch a timed run) and each config of
+             lqr_tpu_torch.bench_all: cfg1 and cfg2 (one resident launch),
+             cfg3 (2048x2048 to 3072 x 1948: the resident kernel 8 times
+             for the 1024-seam width map, then the DP and backtrack
+             kernels 100 times each for the height map on the 3072-row
+             transposed image; held against the C++ reference in full at
+             768x768, and at 2048x2048 the whole width map, the height map
+             and the image), cfg4 (all 4096 images, 16 waves of 256: two
+             batched resident launches a wave) and cfg5 (two batched
+             launches). A line with an "error", a bit_exact* that is not
+             true, a value <= 0 or other launches than these fails.
 
 The card's name and power limit (nvidia-smi) stand on a line of their own;
 the line before the last is a JSON object with one entry per kernel: its
@@ -2289,6 +2303,58 @@ def _median_runs(label, make, run, unit_count, unit, gpu) -> float:
     return med
 
 
+CFG4_IMAGES = 4096    # cfg4's images in phase 8: all 16 waves
+
+
+def check_entry_line(label, line, want) -> None:
+    """Phase 8: an entry point's JSON line passes: no error, every
+    bit_exact* true, a value > 0, the launches of its timed run."""
+    if "error" in line:
+        raise AssertionError(f"{label}: error {line['error']}")
+    bad = [k for k, v in line.items() if k.startswith("bit_exact")
+           and v is not True]
+    if bad or not any(k.startswith("bit_exact") for k in line):
+        raise AssertionError(f"{label}: not bit-exact ({bad})")
+    if not line["value"] > 0:
+        raise AssertionError(f"{label}: value {line['value']}")
+    _expect_launches(label, {k: line["launches"].get(k, 0)
+                             for k in _launches()}, want)
+
+
+def run_entry_points(device) -> None:
+    """Phase 8: lqr_tpu_torch.bench and each lqr_tpu_torch.bench_all
+    config on the card, in-process, each line checked."""
+    from lqr_tpu_torch import bench, bench_all
+    from lqr_tpu_torch.core.engine import KC
+
+    # the launches of one timed run of each: cfg3's width map in chunks of
+    # KC seams, its height map past the resident gate; two chunks a wave
+    want = {"bench": _only(carve_resident=1),
+            1: _only(carve_resident=1),
+            2: _only(carve_resident=1),
+            3: _only(carve_resident=N // 2 // KC, dp_forward=SEAMS,
+                     backtrack=SEAMS),
+            4: _only(carve_resident_batched=2 * CFG4_IMAGES // CFG4[2]),
+            5: _only(carve_resident_batched=2)}
+    reset_launches()
+    t0 = time.perf_counter()
+    line = bench.measure(device=device)
+    say("entry", json.dumps(line))
+    check_entry_line("bench", line, want["bench"])
+    say("entry", f"bench: {time.perf_counter() - t0:.1f} s, launches in "
+        f"all {_launches()}")
+    report = bench_all.Reporter(
+        out=lambda payload: say("entry", json.dumps(payload)))
+    kw = {3: {"spot_seams": N // 2}, 4: {"n_images": CFG4_IMAGES}}
+    for i in sorted(bench_all.CONFIGS):
+        reset_launches()
+        t0 = time.perf_counter()
+        bench_all.run_config(i, report, device=device, **kw.get(i, {}))
+        check_entry_line(bench_all.NAMES[i], report.lines[-1], want[i])
+        say("entry", f"{bench_all.NAMES[i]}: {time.perf_counter() - t0:.1f}"
+            f" s, launches in all {_launches()}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2381,6 +2447,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         run_interactive(device, vs_main, pathlib.Path(tmp))
         time_interactive(device, pathlib.Path(tmp), gpu)
+    run_entry_points(device)
 
     replaces = {"dp_forward": "lqr_tpu/ops/dp_pallas.py:351",
                 "backtrack": "lqr_tpu/ops/dp_pallas.py:547",

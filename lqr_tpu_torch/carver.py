@@ -29,6 +29,7 @@ from .core.state import (EngineConfig, init_state, resolve_device,
 from .core import engine as eng
 from .i18n import _
 from .oracle import strength
+from .utils import codec
 
 
 @dataclasses.dataclass
@@ -54,7 +55,8 @@ def _bucket(w: int) -> int:
 def place_mask_numpy(mask: np.ndarray, H: int, W: int, x_off: int,
                      y_off: int) -> np.ndarray:
     """Strength field [H, W] f32 of a mask placed at (x_off, y_off) on the
-    image, clipped to it (SPEC.md §3)."""
+    image, clipped to it (SPEC.md §3): the NumPy form of
+    ``codec.place_mask``, which the tests hold it equal to."""
     s = strength(mask)
     field = np.zeros((H, W), np.float32)
     hm, wm = s.shape
@@ -156,9 +158,11 @@ class Carver:
         self._drop_map()
 
     def _place_mask(self, mask, x_off, y_off) -> torch.Tensor:
-        """The mask's strength field on the image, placed on the host and
-        copied to the device once."""
-        field = place_mask_numpy(np.asarray(mask, np.uint8), self._ref_h,
+        """The mask's strength field on the image, placed on the host by the
+        native codec (``codec.place_mask``, equal bit for bit to
+        ``place_mask_numpy``) and copied to the device once. A failure of
+        the native library raises: nothing falls back to NumPy."""
+        field = codec.place_mask(np.asarray(mask, np.uint8), self._ref_h,
                                  self._ref_w, x_off, y_off)
         return torch.from_numpy(field).to(self.device)
 

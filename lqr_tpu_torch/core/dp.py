@@ -55,6 +55,18 @@ def rigc_table(delta_x: int, H: int) -> np.ndarray:
                      for m in range(delta_x + 1)], np.float32)
 
 
+def shift_frontier(M: torch.Tensor, dx: int) -> torch.Tensor:
+    """shifted[..., x] = M[..., x + dx], +inf where x + dx is out of range.
+    M: [..., Wb]."""
+    if dx == 0:
+        return M
+    Wb = M.shape[-1]
+    lane = torch.arange(Wb, device=M.device)
+    s = torch.roll(M, -dx, dims=-1)
+    out = lane >= Wb - dx if dx > 0 else lane < -dx
+    return torch.where(out, torch.inf, s)
+
+
 def dp_row(M: torch.Tensor, e_row: torch.Tensor, rig_row, order: list,
            dxs: torch.Tensor, rigc, has_rig: bool):
     """One DP row: (M_new [W], bp [W] int8) from the previous row M [W].

@@ -119,3 +119,10 @@ def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     ulp off on AVX-512 hosts); an f64 sqrt rounded to f32 is, on every
     device."""
     return torch.sqrt(x.double()).float()
+
+
+def energy(img: torch.Tensor, w: int, nrg: int) -> torch.Tensor:
+    """Energy map [H, Wb] f32 of the compacted current image ([H, Wb, C]
+    u8, lanes >= w zeroed); lanes >= w get +inf. The engine's route,
+    ``reader_plane`` then ``energy_from_plane``, bit for bit."""
+    return energy_from_plane(reader_plane(img, nrg), w, nrg)

@@ -109,13 +109,21 @@ def _carve_once(cfg: EngineConfig, cur_b, cur_bias, cur_rig, posmap,
             None if posmap is None else compact(posmap))
 
 
+def route(cfg: EngineConfig) -> str:
+    """The route extend_map takes for a map of this config: "resident"
+    (planes within ``RESIDENT_BUDGET``) or "per_seam"."""
+    if resident_ok(cfg.H, cfg.Wb, cfg.has_bias, cfg.has_rig):
+        return "resident"
+    return "per_seam"
+
+
 def extend_map(cfg: EngineConfig, st: MapState, k: int) -> MapState:
     """Carve k further seams into the map (depth += k).
 
     The returned state owns a fresh ``vs`` (the input state is left
     unchanged); seams are written into it in place as they are found.
     Both routes give the same state, bit for bit."""
-    if resident_ok(cfg.H, cfg.Wb, cfg.has_bias, cfg.has_rig):
+    if route(cfg) == "resident":
         return _extend_resident(cfg, st, k)
     return _extend_per_seam(cfg, st, k)
 

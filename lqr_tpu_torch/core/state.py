@@ -77,6 +77,11 @@ def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def lane_index(H: int, Wb: int, device) -> torch.Tensor:
+    """[H, Wb] int32 column index grid on ``device`` (a broadcast view)."""
+    return torch.arange(Wb, dtype=torch.int32, device=device).expand(H, Wb)
+
+
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device: "cuda" (raises LqrConfigError when CUDA
     is absent) or "cpu", which the caller must ask for."""

@@ -7,6 +7,8 @@ never races the JAX package's build. Exposes:
 
 - carve(img, n)           -> visibility map (int32 [H, W])
 - materialize(img, vs, w) -> uint8 [H, w, C]
+- bench(img, n)           -> seconds for n seams on one core (the CPU
+                             baseline of every ``vs_baseline``)
 """
 
 from __future__ import annotations
@@ -53,6 +55,8 @@ def _load():
     lib.lqr_ref_carve.argtypes = [u8p, i, i, i, f32p, f32p, i, i, i, i, i32p]
     lib.lqr_ref_materialize.restype = i
     lib.lqr_ref_materialize.argtypes = [u8p, i32p, i, i, i, i, u8p]
+    lib.lqr_ref_bench.restype = ctypes.c_double
+    lib.lqr_ref_bench.argtypes = [u8p, i, i, i, i, i, i, i]
     _lib = lib
     return lib
 
@@ -106,3 +110,17 @@ def materialize(img, vs, w: int) -> np.ndarray:
     if rc != 0:
         raise RuntimeError(f"lqr_ref_materialize failed ({rc})")
     return out
+
+
+def bench(img, n_seams: int, *, delta_x: int = 1, nrg: int = 0,
+          ssf: int = 2) -> float:
+    """Seconds that the reference takes for n_seams seams on one core (the
+    liblqr-role baseline of bench.py's and bench_all.py's vs_baseline)."""
+    lib = _load()
+    img = _img3(img)
+    h, w, c = img.shape
+    if not 0 <= n_seams < w:
+        raise ValueError(f"n_seams={n_seams} must be in [0, {w})")
+    return float(lib.lqr_ref_bench(
+        img.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), h, w, c,
+        delta_x, nrg, ssf, n_seams))

@@ -100,3 +100,104 @@ def test_other_formats_need_pillow(tmp_path, no_pil):
     (tmp_path / "b.tif").write_bytes(b"II*\x00")
     with pytest.raises(LqrImageError, match="Pillow"):
         load_image(str(tmp_path / "b.tif"))
+
+
+# -- the host's buffer marshalling: stage_wave, (de)interleave, place_mask
+
+
+@pytest.mark.parametrize("c", [1, 3, 4])
+@pytest.mark.parametrize("pad", [(0, 0), (5, 0), (0, 7), (3, 9)])
+def test_stage_wave_byte_equal_to_jax(c, pad):
+    """Shifts of 0, in range, past h and w, and negative; the padding past
+    the image zeroed in both."""
+    h, w = 13, 21
+    base = _arr(c, h, w, seed=7)
+    dys = np.array([0, 1, h - 1, h, h + 4, 3 * h + 2, -1, -h - 5], np.int32)
+    dxs = np.array([0, w - 1, 2, w + 3, w, -2, 5 * w + 1, 0], np.int32)
+    out_h, out_w = h + pad[0], w + pad[1]
+    got = tcodec.stage_wave(base, dys, dxs, out_h, out_w)
+    want = jcodec.stage_wave(base, dys, dxs, out_h, out_w)
+    assert got.shape == (len(dys), out_h, out_w, c) and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+    for i, (dy, dx) in enumerate(zip(dys, dxs)):
+        np.testing.assert_array_equal(
+            got[i, :h, :w], np.roll(base, (int(dy), int(dx)), axis=(0, 1)))
+    assert not got[:, h:].any() and not got[:, :, w:].any()
+    # into a caller's buffer, a 2-D base as one channel
+    buf = np.full((len(dys), out_h, out_w, c), 7, np.uint8)
+    assert tcodec.stage_wave(base, dys, dxs, out_h, out_w, out=buf) is buf
+    np.testing.assert_array_equal(buf, want)
+    if c == 1:
+        np.testing.assert_array_equal(
+            tcodec.stage_wave(base[:, :, 0], dys, dxs, out_h, out_w), want)
+
+
+def test_stage_wave_refuses_bad_arguments():
+    base = _arr(3, 8, 10)
+    for args in ((base, [0, 1], [0], 8, 10),       # unequal shift counts
+                 (base, [0], [0], 7, 10),          # buffer shorter
+                 (base, [0], [0], 8, 9),           # buffer narrower
+                 (base[:0], [0], [0], 8, 10)):     # empty image
+        with pytest.raises(tcodec.NativeCodecError):
+            tcodec.stage_wave(*args)
+    for out in (np.zeros((1, 8, 10, 3), np.float32),
+                np.zeros((1, 8, 10, 4), np.uint8),
+                np.zeros((1, 8, 20, 3), np.uint8)[:, :, ::2]):
+        with pytest.raises(tcodec.NativeCodecError, match="buffer"):
+            tcodec.stage_wave(base, [0], [0], 8, 10, out=out)
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+def test_interleave_round_trip_equal_to_jax(c):
+    a = _arr(c, 11, 17)
+    planes = tcodec.deinterleave(a)
+    np.testing.assert_array_equal(planes, jcodec.deinterleave(a))
+    np.testing.assert_array_equal(planes, np.moveaxis(a, 2, 0))
+    back = tcodec.interleave(planes)
+    np.testing.assert_array_equal(back, jcodec.interleave(planes))
+    np.testing.assert_array_equal(back, a)
+    with pytest.raises(tcodec.NativeCodecError):
+        tcodec.interleave(planes[0])
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
+def test_place_mask_equal_to_jax_and_numpy(c):
+    """Inside, negative and clipping offsets, wholly outside; factors;
+    accumulation into a caller's field."""
+    from lqr_tpu_torch.carver import place_mask_numpy
+    mask = _arr(c, 9, 14, seed=3)
+    H, W = 20, 30
+    for x_off, y_off in ((3, 2), (-4, -3), (25, 15), (-13, 19), (-20, 0),
+                         (0, 40), (17, -8)):
+        got = tcodec.place_mask(mask, H, W, x_off, y_off)
+        assert got.dtype == np.float32 and got.shape == (H, W)
+        np.testing.assert_array_equal(
+            got, jcodec.place_mask(mask, H, W, x_off, y_off))
+        np.testing.assert_array_equal(
+            got, place_mask_numpy(mask, H, W, x_off, y_off))
+        for factor in (-0.8, 2.5, 1000.0):
+            acc = tcodec.place_mask(mask, H, W, 1, 1)
+            want = jcodec.place_mask(mask, H, W, 1, 1)
+            jcodec.place_mask(mask, H, W, x_off, y_off, factor, out=want)
+            assert tcodec.place_mask(mask, H, W, x_off, y_off, factor,
+                                     out=acc) is acc
+            np.testing.assert_array_equal(acc, want)
+    if c == 1:
+        np.testing.assert_array_equal(
+            tcodec.place_mask(mask[:, :, 0], H, W, 2, 3),
+            jcodec.place_mask(mask[:, :, 0], H, W, 2, 3))
+    with pytest.raises(tcodec.NativeCodecError, match="buffer"):
+        tcodec.place_mask(mask, H, W, out=np.zeros((H, W), np.float64))
+
+
+def test_native_codec_error_is_an_lqr_image_error():
+    assert issubclass(tcodec.NativeCodecError, LqrImageError)
+    for fn in (lambda: tcodec.decode(b"not an image"),
+               lambda: tcodec.place_mask(np.zeros((2, 2, 5), np.uint8), 4,
+                                         4)):
+        try:
+            fn()
+        except LqrImageError as e:
+            assert type(e) is tcodec.NativeCodecError
+        else:
+            raise AssertionError("no error raised")

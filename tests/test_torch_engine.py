@@ -198,3 +198,41 @@ def test_init_state_runs_on_the_card_unless_asked(monkeypatch):
         tst.init_state(cfg, img, device="cuda:0")
     st = tst.init_state(cfg, img, device="cpu")
     assert st.vs.device.type == "cpu" and st.cur_b.shape == (4, 128)
+
+
+@pytest.mark.parametrize("nrg", list(EnergyFunc))
+def test_energy_of_the_image_matches_jax(nrg):
+    """core.energy.energy: the energy of the interleaved image, equal to
+    JAX's and to reader_plane then energy_from_plane."""
+    rng = np.random.default_rng(40 + int(nrg))
+    H, Wb = 10, 128
+    for C, w in ((3, 77), (4, 128), (1, 2)):
+        img = np.zeros((H, Wb, C), np.uint8)
+        img[:, :w] = random_image(rng, H, w, C)
+        got = ten.energy(torch.from_numpy(img), w, int(nrg))
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jen.energy(jnp.asarray(img),
+                                               jnp.int32(w), int(nrg))))
+        np.testing.assert_array_equal(
+            got.numpy(), ten.energy_from_plane(
+                ten.reader_plane(torch.from_numpy(img), int(nrg)), w,
+                int(nrg)).numpy())
+
+
+def test_lane_index_and_shift_frontier_match_jax():
+    from lqr_tpu.core import dp as jdp
+    from lqr_tpu_torch.core import dp as tdp
+    for H, Wb in ((1, 128), (7, 256)):
+        got = tst.lane_index(H, Wb, "cpu")
+        assert got.dtype == torch.int32 and got.shape == (H, Wb)
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(jst.lane_index(H, Wb)))
+    M = np.random.default_rng(3).random((4, 9)).astype(np.float32)
+    M[1, 2] = np.inf
+    for m in (M, M[0]):
+        for dx in range(-4, 5):
+            got = tdp.shift_frontier(torch.from_numpy(m), dx)
+            assert got.dtype == torch.float32
+            np.testing.assert_array_equal(
+                got.numpy(), np.asarray(jdp.shift_frontier(jnp.asarray(m),
+                                                           dx)))

@@ -157,3 +157,24 @@ def test_masks_match_native(nrg):
                                   native.materialize(img, vs, w - n))
     np.testing.assert_array_equal(t.get_aux(0),
                                   native.materialize(aux, vs, w - n))
+
+
+@pytest.mark.parametrize("offsets", [((-5, -4), (-7, 3)),
+                                     ((50, 25), (60, -10)),
+                                     ((-30, 20), (10, 30))])
+def test_clipped_masks_match_jax(offsets):
+    """bias_add + rigmask_add at offsets that clip the masks at every edge:
+    the port's native placement (codec.place_mask) gives lqr_tpu.Carver's
+    maps and pixels."""
+    h, w = 30, 64
+    img = _img(8, h, w)
+    pres, disc, rigm, _ = _masks(9, h, w)
+    (bx, by), (rx, ry) = offsets
+    j, t = _pair(img, rigidity=25.0)
+    for c in (j, t):
+        c.set_dump_vmaps(True)
+        c.bias_add(pres, 1000.0, bx, by)
+        c.bias_add(disc, -800.0, rx, by)
+        c.rigmask_add(rigm, rx, ry)
+        c.resize(w - 20, h - 6)
+    _same(j, t, n_aux=0)
