@@ -135,6 +135,18 @@ Phases, one line each (any failure exits non-zero):
              batched resident launches a wave) and cfg5 (two batched
              launches). A line with an "error", a bit_exact* that is not
              true, a value <= 0 or other launches than these fails.
+9. scaling — python -m lqr_tpu_torch.scaling on the card, in a process of
+             its own, each JSON line printed after "[scaling]": a cfg4
+             wave (256 images of 1024x1024, 256 seams) through
+             BatchCarver on a one-process mesh of two 'data' rows of the
+             card against no mesh (no exchange in the carve, two batched
+             resident launches a row); the same wave over two processes
+             that share the card (make_process_mesh, a gloo group, 128
+             images each, the vs maps all-gathered and held against one
+             process); and 2048x2048, 100 seams on 4 column shards of the
+             card (one dp_sharded and one backtrack launch a seam, the
+             halo exchanges the design predicts). A non-zero exit, a line
+             that is not bit-exact or other launches fail.
 
 The card's name and power limit (nvidia-smi) stand on a line of their own;
 the line before the last is a JSON object with one entry per kernel: its
@@ -2355,6 +2367,61 @@ def run_entry_points(device) -> None:
             f" s, launches in all {_launches()}")
 
 
+def check_scaling_line(line) -> None:
+    """Phase 9: one line of lqr_tpu_torch.scaling: no error, bit-exact, its
+    counters as the design says, the launches of its route."""
+    from lqr_tpu_torch.core.engine import KC
+    label = line["metric"]
+    if "error" in line or line["ok"] is not True \
+            or line["bit_exact"] is not True:
+        raise AssertionError(f"{label}: {line.get('error', 'not ok')}")
+    per_row = _only(carve_resident_batched=CFG4[3] // KC)
+    if label == "data_parallel_scaling":
+        _expect_launches(label, {k: line["launches_unsharded"].get(k, 0)
+                                 for k in _launches()}, per_row)
+        (dev,) = line["per_device"].values()
+        _expect_launches(label, {k: dev["launches"].get(k, 0)
+                                 for k in _launches()},
+                         _only(carve_resident_batched=line["rows"]
+                               * CFG4[3] // KC))
+    elif label == "multiprocess_gloo_resize":
+        for w in line["workers"]:
+            if w["device"] != "cuda:0":
+                raise AssertionError(f"{label}: rank {w['rank']} on "
+                                     f"{w['device']}")
+            _expect_launches(f"{label} rank {w['rank']}",
+                             {k: w["launches"].get(k, 0)
+                              for k in _launches()}, per_row)
+    else:
+        _expect_launches(label, {k: line["launches_per_seam"].get(k, 0)
+                                 for k in _launches()},
+                         _only(dp_sharded=1, backtrack=1))
+
+
+def run_scaling() -> None:
+    """Phase 9: python -m lqr_tpu_torch.scaling on the card, in a process
+    of its own (its workers share the card); every line checked."""
+    import torch
+    torch.cuda.empty_cache()        # the card's memory for its processes
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "lqr_tpu_torch.scaling"],
+        cwd=pathlib.Path(__file__).resolve().parent, capture_output=True,
+        text=True, timeout=600)
+    lines = [json.loads(x) for x in proc.stdout.splitlines()
+             if x.startswith("{")]
+    for line in lines:
+        say("scaling", json.dumps(line))
+    if proc.returncode != 0 or len(lines) != 3:
+        raise AssertionError(f"lqr_tpu_torch.scaling exited "
+                             f"{proc.returncode} with {len(lines)} lines: "
+                             f"{proc.stderr[-3000:]}")
+    for line in lines:
+        check_scaling_line(line)
+    say("scaling", f"three lines bit-exact, their counters and launches as "
+        f"expected: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2448,6 +2515,7 @@ def main() -> int:
         run_interactive(device, vs_main, pathlib.Path(tmp))
         time_interactive(device, pathlib.Path(tmp), gpu)
     run_entry_points(device)
+    run_scaling()
 
     replaces = {"dp_forward": "lqr_tpu/ops/dp_pallas.py:351",
                 "backtrack": "lqr_tpu/ops/dp_pallas.py:547",

@@ -227,7 +227,7 @@ def config3(report, device="cuda", n=2048, cut=100, m=768, m_cut=48,
            launches=launches, **extra)
 
 
-def _wave(seed: int, B: int, size: int) -> np.ndarray:
+def make_wave(seed: int, B: int, size: int) -> np.ndarray:
     """One cfg4 wave on the host: B copies of a size^2 test image, each
     rolled by a random (dy, dx) in [0, 64), written by the native codec
     straight into the [B, size, size, 3] batch buffer."""
@@ -257,12 +257,12 @@ def config4(report, device="cuda", n_images=4096, wave=256, seams=256,
 
     dev = resolve_device(device)
 
-    bc = BatchCarver(_wave(10_000, wave, size), device=dev)   # warm-up
+    bc = BatchCarver(make_wave(10_000, wave, size), device=dev)   # warm-up
     bc.carve(seams)
     sync(dev)
     del bc
 
-    frs0 = _wave(0, 4, size)
+    frs0 = make_wave(0, 4, size)
     bc0 = BatchCarver(frs0, device=dev)
     bc0.carve(seams)
     vs_ref = native.carve(frs0[1], seams)
@@ -275,13 +275,13 @@ def config4(report, device="cuda", n_images=4096, wave=256, seams=256,
     ex = ThreadPoolExecutor(1)
     try:
         t_all = time.perf_counter()
-        futs = deque(ex.submit(_wave, wv, wave, size)
+        futs = deque(ex.submit(make_wave, wv, wave, size)
                      for wv in range(min(2, waves)))
         next_wv = len(futs)
         for _ in range(waves):
             arr = futs.popleft().result()
             if next_wv < waves:
-                futs.append(ex.submit(_wave, next_wv, wave, size))
+                futs.append(ex.submit(make_wave, next_wv, wave, size))
                 next_wv += 1
             t0 = time.perf_counter()
             bc = BatchCarver(arr, device=dev)    # the copy to the card

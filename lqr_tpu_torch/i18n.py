@@ -1,12 +1,12 @@
-"""Message catalog (the gettext layer), shared with the JAX package.
+"""Message catalog (the gettext layer).
 
 Same lookup contract as ``lqr_tpu.i18n``: ``LQR_TPU_LOCALE_FILE``, then
 ``$LQR_TPU_LOCALE_DIR/<lang>.json`` with <lang> from ``LANGUAGE`` /
-``LC_ALL`` / ``LC_MESSAGES`` / ``LANG``, then the bundled catalogs. The
-bundled catalogs are the JAX package's ``lqr_tpu/locale/*.json``, read by
-path (importing ``lqr_tpu`` would import jax). An untranslated msgid
-passes through unchanged; ``N_`` marks a msgid for extraction without
-translating it.
+``LC_ALL`` / ``LC_MESSAGES`` / ``LANG``, then the catalogs bundled with
+this package (``lqr_tpu_torch/locale/*.json``, copies of the JAX package's,
+which tests/test_torch_i18n.py holds equal). An untranslated msgid passes
+through unchanged; ``N_`` marks a msgid for extraction without translating
+it.
 """
 
 from __future__ import annotations
@@ -14,8 +14,8 @@ from __future__ import annotations
 import json
 import os
 
-BUNDLED_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "lqr_tpu", "locale")
+BUNDLED_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "locale")
 
 _catalog: dict | None = None
 

@@ -299,7 +299,11 @@ class BatchCarver:
         batch; with a 'cols' axis of more than one device, image columns
         split too and ``carve`` runs the column-sharded resize (equal
         heights only). The state lives on the mesh's devices; without a
-        mesh it lives on ``device``."""
+        mesh it lives on ``device``. On a mesh over processes
+        (``make_process_mesh``) every process passes the same images and
+        carves the rows it holds; ``state``, ``images_at`` and ``aux_at``
+        then all-gather the rows over the group, so every process calls
+        them."""
         if len(images) == 0:
             raise LqrImageError(_("BatchCarver needs at least one image"))
         if isinstance(images, np.ndarray) and images.ndim == 4:
@@ -401,7 +405,7 @@ class BatchCarver:
             raise LqrImageError(
                 _("column sharding requires equal image heights (pad or "
                   "batch same-height images together)"))
-        dev = (mesh.devices[0][0] if mesh is not None
+        dev = (mesh.devices[mesh.local_rows[0]][0] if mesh is not None
                else resolve_device(device))
         st = init_state_batched(self.cfg, buf, widths, bias=bias_f,
                                 rig=rig_f, aux=aux_planes, device=dev)
@@ -412,7 +416,7 @@ class BatchCarver:
     @property
     def state(self) -> MapState:
         """The batched state; a sharded one gathered onto the mesh's first
-        device."""
+        device (on a mesh over processes, onto this process's device)."""
         if self.mesh is None:
             return self._state
         return gather_state(self._state)

@@ -1,16 +1,25 @@
 """Sharded carving: batch data-parallelism and column sharding of the DP.
 
-Counterpart of ``lqr_tpu.parallel.sharding``, as one process and one
-controller, the way ``shard_map`` runs it:
+Counterpart of ``lqr_tpu.parallel.sharding``:
 
 - ``Mesh`` is a (data, cols) grid of ``torch.device`` s. A device may
   appear more than once: four column shards on one GPU run the column-
   sharded path on a one-GPU machine, eight CPU shards run it in the tests.
+  ``make_mesh`` builds a mesh in one process, the way ``shard_map`` runs
+  one controller. ``make_process_mesh`` builds one whose 'data' rows lie
+  in the processes of a ``torch.distributed`` group, one row a process, as
+  a JAX mesh spans the devices of several processes.
 - A sharded state (``ShardedState``) keeps each shard as its own tensors on
-  its device. Every exchange is an explicit copy to the neighbour's device
-  (but the DP's halos on one CUDA device, below);
+  its device; on a mesh over processes each process holds its own row
+  only. Every exchange between column shards is an explicit copy to the
+  neighbour's device (but the DP's halos on one CUDA device, below);
   the gathers (the frontier and backpointers for the backtrack, the row
-  counts for the commit) are a ``torch.cat`` onto one device.
+  counts for the commit) are a ``torch.cat`` onto one device. ``gather_state``
+  of a mesh over processes all-gathers the rows over the group, as host
+  copies (the group's backend must take CPU tensors: gloo).
+- ``EXCHANGES`` counts the messages between shards, by kind: each is a
+  copy where the two shards lie on distinct devices or processes, and a
+  read in place where they share a device.
 
 Axis ``data`` splits the batch: each shard carves its images with the
 batched routes of ``parallel.batch``, with no exchange at all.
@@ -45,37 +54,67 @@ tensors and on its plain version on CPU tensors.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import EnergyFunc
 from ..core import engine as eng
 from ..core.energy import (_f32, energy_from_gx, energy_from_plane,
                            reader_plane)
-from ..core.state import EngineConfig, MapState
+from ..core.state import EngineConfig, MapState, resolve_device
 from ..errors import LqrConfigError, LqrImageError
 from ..i18n import _
 from ..ops import dp_cuda
 from ..ops.dp_block import MAX_SHARDS, dp_blocked, dp_sharded
 
-__all__ = ["Mesh", "ShardedState", "make_mesh", "shard_batch_state",
-           "gather_state", "map_data_shards", "find_seam_sharded",
-           "extend_map_sharded", "sharded_seam_step", "dp_route"]
+__all__ = ["Mesh", "ShardedState", "make_mesh", "make_process_mesh",
+           "shard_batch_state", "gather_state", "map_data_shards",
+           "find_seam_sharded", "extend_map_sharded", "sharded_seam_step",
+           "dp_route", "EXCHANGES"]
 
 INF = float("inf")
+
+# Messages between shards, by kind: "halo" (a column shard's neighbour
+# values: the energy's one column, the DP's halo of each block of rows,
+# the compaction's carry column), "gather" (to and from a mesh row's first
+# shard: the backtrack's inputs, the seam, the commit's row counts) and
+# "process" (an all-gather over a mesh's process group).
+EXCHANGES = {"halo": 0, "gather": 0, "process": 0}
+
+
+def _send(kind: str, t: torch.Tensor, device) -> torch.Tensor:
+    """t, a shard's tensor, handed to another shard on ``device``."""
+    EXCHANGES[kind] += 1
+    return t.to(device)
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A (data, cols) grid of devices: ``devices[d][c]``."""
+    """A (data, cols) grid of devices: ``devices[d][c]``. A mesh over
+    processes (``make_process_mesh``) also has the ``torch.distributed``
+    group and ``ranks[d]``, the group rank of the process that holds row d;
+    a device of another process's row is that process's device."""
 
     devices: tuple
+    group: object = None
+    ranks: tuple | None = None
 
     @property
     def shape(self) -> dict:
         return {"data": len(self.devices), "cols": len(self.devices[0])}
+
+    @property
+    def local_rows(self) -> tuple:
+        """The 'data' rows this process holds: every row of a mesh in one
+        process."""
+        if self.ranks is None:
+            return tuple(range(len(self.devices)))
+        me = dist.get_rank(self.group)
+        return tuple(d for d, r in enumerate(self.ranks) if r == me)
 
 
 def make_mesh(n_devices: int | None = None, data: int | None = None,
@@ -108,6 +147,48 @@ def make_mesh(n_devices: int | None = None, data: int | None = None,
                       for r in range(data)))
 
 
+def make_process_mesh(data: int | None = None, device=None,
+                      group=None) -> Mesh:
+    """A mesh whose 'data' rows lie in the processes of an initialized
+    ``torch.distributed`` group (``group``, else the default group): one
+    row a process, in rank order, on the process's ``device``, by default
+    ``cuda:(LOCAL_RANK % device_count)`` (the group rank where LOCAL_RANK is
+    unset); pass ``device="cpu"`` for CPU rows. The caller initializes the
+    group; building the mesh is collective (every process calls it).
+
+    data: the 'data' rows, the group's size by default. Fewer rows would
+    put a 'cols' axis across processes, which raises LqrConfigError: its
+    halo exchange between GPUs needs a machine with two or more."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise LqrConfigError(
+            _("make_process_mesh needs an initialized torch.distributed "
+              "process group; call torch.distributed.init_process_group "
+              "first"))
+    group = group or dist.group.WORLD
+    n = dist.get_world_size(group)
+    if data is not None and data != n:
+        if not 1 <= data <= n or n % data != 0:
+            raise LqrConfigError(
+                _("{n} devices cannot form {d} 'data' rows")
+                .format(n=n, d=data))
+        raise LqrConfigError(
+            _("{n} processes as {d} 'data' rows would put a 'cols' axis "
+              "across processes: its halo exchange between GPUs needs a "
+              "machine with two or more; make_process_mesh puts one 'data' "
+              "row in each process").format(n=n, d=data))
+    if device is None:
+        if not torch.cuda.is_available():
+            raise LqrConfigError(
+                _("make_process_mesh found no CUDA device; pass "
+                  "device=\"cpu\" for CPU rows"))
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+    names = [None] * n
+    dist.all_gather_object(names, str(resolve_device(device)), group=group)
+    return Mesh(tuple((torch.device(d),) for d in names), group=group,
+                ranks=tuple(range(n)))
+
+
 class ShardedState(NamedTuple):
     """A batched MapState split over a mesh: ``shards[d][c]`` is the MapState
     of data row d's images and (with ``cols``) column shard c's columns, on
@@ -125,7 +206,9 @@ _STATE_PLANES = ("ref", "bias", "rig", "vs", "cur_b", "cur_bias", "cur_rig")
 def shard_batch_state(st: MapState, mesh: Mesh,
                       cols: bool = False) -> ShardedState:
     """Split a batched MapState over the mesh: the batch over 'data', and
-    with cols=True the image columns over 'cols'."""
+    with cols=True the image columns over 'cols'. On a mesh over processes
+    every process passes the whole batch and keeps a copy of its own rows
+    (the others are None), so the whole batch can be freed."""
     B, _H, Wb = st.vs.shape
     n_data = mesh.shape["data"]
     if B % n_data != 0:
@@ -140,28 +223,60 @@ def shard_batch_state(st: MapState, mesh: Mesh,
             .format(w=Wb, n=n_cols))
     Bd, Wl = B // n_data, Wb // n_cols
 
+    copy = mesh.ranks is not None     # no view may keep the whole batch
+
     def put(a, d, c):
         if a is None:
             return None
         a = a[d * Bd:(d + 1) * Bd]
         if cols:
             a = a[:, :, c * Wl:(c + 1) * Wl]
-        return a.to(mesh.devices[d][c]).contiguous()
+        a = a.to(mesh.devices[d][c]).contiguous()
+        return a.clone() if copy else a
 
-    rows = []
-    for d in range(n_data):
+    rows = [None] * n_data
+    for d in mesh.local_rows:
         sl = slice(d * Bd, (d + 1) * Bd)
-        rows.append(tuple(
+        rows[d] = tuple(
             MapState(**{name: put(getattr(st, name), d, c)
                         for name in _STATE_PLANES},
                      aux=tuple(put(a, d, c) for a in st.aux),
                      ref_w=st.ref_w[sl].copy(), depth=st.depth[sl].copy())
-            for c in range(n_cols)))
+            for c in range(n_cols))
     return ShardedState(mesh, cols, tuple(rows))
 
 
+def _gather_processes(sst: ShardedState) -> MapState:
+    """gather_state of a mesh over processes: every row's shard all-gathered
+    over the group as host copies, onto this process's device."""
+    mesh = sst.mesh
+    (st,) = sst.shards[mesh.local_rows[0]]
+    dev = st.vs.device
+
+    def gather(t):
+        """t of every row, in row order, on the host."""
+        host = t.cpu().contiguous()
+        parts = [torch.empty_like(host) for _ in mesh.ranks]
+        dist.all_gather(parts, host, group=mesh.group)
+        EXCHANGES["process"] += 1
+        return torch.cat([parts[r] for r in mesh.ranks])
+
+    def plane(t):
+        return None if t is None else gather(t).to(dev)
+
+    return MapState(
+        **{name: plane(getattr(st, name)) for name in _STATE_PLANES},
+        aux=tuple(plane(a) for a in st.aux),
+        ref_w=gather(torch.from_numpy(st.ref_w)).numpy(),
+        depth=gather(torch.from_numpy(st.depth)).numpy())
+
+
 def gather_state(sst: ShardedState) -> MapState:
-    """The whole batched MapState on the mesh's first device."""
+    """The whole batched MapState on the mesh's first device; on a mesh over
+    processes, on this process's device in every process (a collective:
+    every process of the group calls it)."""
+    if sst.mesh.ranks is not None:
+        return _gather_processes(sst)
     dev = sst.mesh.devices[0][0]
 
     def cat(parts):
@@ -183,14 +298,15 @@ def gather_state(sst: ShardedState) -> MapState:
 
 
 def map_data_shards(sst: ShardedState, fn) -> ShardedState:
-    """Apply fn(state, batch_slice) -> state to each data row's (unsplit)
-    shard: the data-parallel resize, with no exchange."""
+    """Apply fn(state, batch_slice) -> state to the (unsplit) shard of each
+    data row this process holds: the data-parallel resize, with no
+    exchange."""
     assert not sst.cols
-    out, start = [], 0
-    for (st,) in sst.shards:
+    out = list(sst.shards)
+    for d in sst.mesh.local_rows:
+        (st,) = sst.shards[d]
         n = st.vs.shape[0]
-        out.append((fn(st, slice(start, start + n)),))
-        start += n
+        out[d] = (fn(st, slice(d * n, (d + 1) * n)),)
     return sst._replace(shards=tuple(out))
 
 
@@ -227,7 +343,14 @@ def _dp_local_blocked(e_loc, rig_loc, pref_left: bool, delta_x: int,
     """The column-sharded forward DP, placed by dp_route. e_loc / rig_loc:
     per-shard [H, Wl] tensors (rig_loc None without rigidity), shard c on
     devices[c]. Returns (per-shard M_last [Wl], per-shard bp [H, Wl]
-    int8)."""
+    int8).
+
+    Each block of R rows, every shard takes a halo from each neighbour:
+    dp_blocked sends them as packed copies, dp_sharded's blocks read them
+    from each other's shared memory; both count here."""
+    n = len(e_loc)
+    if n > 1 and delta_x > 0:
+        EXCHANGES["halo"] += 2 * (n - 1) * (H // R)
     if dp_route(devices) == "cluster":
         return dp_sharded(e_loc, rig_loc, pref_left, delta_x, has_rig, H, R)
     return dp_blocked(e_loc, rig_loc, pref_left, delta_x, has_rig, H, R,
@@ -237,8 +360,10 @@ def _dp_local_blocked(e_loc, rig_loc, pref_left: bool, delta_x: int,
 def _backtrack_gathered(M_loc, bp_loc, pref_left: bool, dev):
     """The seam [H] on dev, from the shards' frontiers and backpointers
     gathered there."""
-    M_all = torch.cat([m.to(dev) for m in M_loc])
-    bp_all = torch.cat([b.to(dev) for b in bp_loc], dim=1)
+    M_all = torch.cat([M_loc[0].to(dev)]
+                      + [_send("gather", m, dev) for m in M_loc[1:]])
+    bp_all = torch.cat([bp_loc[0].to(dev)]
+                       + [_send("gather", b, dev) for b in bp_loc[1:]], dim=1)
     return dp_cuda.backtrack(M_all, bp_all, pref_left)
 
 
@@ -277,10 +402,10 @@ def _local_energy(cb, w: int, nrg: int, glane, devices):
         if EnergyFunc(nrg) == EnergyFunc.NULL:
             e = torch.zeros_like(b)
         else:
-            bl_col = (cb[c - 1][:, -1:].to(devices[c]) if c > 0
+            bl_col = (_send("halo", cb[c - 1][:, -1:], devices[c]) if c > 0
                       else torch.zeros_like(b[:, :1]))
-            br_col = (cb[c + 1][:, :1].to(devices[c]) if c < n - 1
-                      else torch.zeros_like(b[:, :1]))
+            br_col = (_send("halo", cb[c + 1][:, :1], devices[c])
+                      if c < n - 1 else torch.zeros_like(b[:, :1]))
             br = torch.cat([b[:, 1:], br_col], dim=1)
             br = torch.where(glane[c] >= w - 1, b, br)   # replicate right
             bl = torch.cat([bl_col, b[:, :-1]], dim=1)
@@ -321,9 +446,9 @@ def _carve_seam_local(cb, cbs, crg, vs, w: int, s: int, pref_left: bool,
     out = [[None] * n for _ in planes]
     counts, seams = [], []
     for c in range(n):
-        seam_c = seam.to(devices[c])
+        seam_c = seam if c == 0 else _send("gather", seam, devices[c])
         seams.append(seam_c)
-        recv = (packed[c + 1].to(devices[c]) if c < n - 1
+        recv = (_send("halo", packed[c + 1], devices[c]) if c < n - 1
                 else torch.zeros_like(packed[c]))
         ge = glane[c] >= seam_c[:, None]
         keep = glane[c] < w - 1
@@ -334,14 +459,15 @@ def _carve_seam_local(cb, cbs, crg, vs, w: int, s: int, pref_left: bool,
         counts.append(visible.to(torch.int32).sum(dim=1))
 
     # commit: the exclusive prefix of the shards' visible counts per row
-    allc = torch.stack([k.to(devices[0]) for k in counts])      # [n, H]
+    allc = torch.stack([counts[0]] + [_send("gather", k, devices[0])
+                                      for k in counts[1:]])     # [n, H]
     prefix = torch.cumsum(allc, dim=0) - allc
     vs_out = []
     for c in range(n):
         visible = (vs[c] == 0) & (glane[c] < ref_w)
         vis = visible.to(torch.int32)
-        rank = (torch.cumsum(vis, dim=1) - vis
-                + prefix[c].to(devices[c])[:, None])
+        pre = prefix[c] if c == 0 else _send("gather", prefix[c], devices[c])
+        rank = torch.cumsum(vis, dim=1) - vis + pre[:, None]
         hit = visible & (rank == seams[c][:, None])
         vs_out.append(torch.where(hit, s, vs[c]))
     it = iter(out[1:])

@@ -125,7 +125,7 @@ def test_bench_all_without_cuda_prints_error_lines(capsys, monkeypatch):
 
 def test_cfg4_stages_waves_with_the_native_codec():
     """A cfg4 wave: rolled copies of one image, the shifts in [0, 64)."""
-    arr = bench_all._wave(3, 5, 40)
+    arr = bench_all.make_wave(3, 5, 40)
     base = bench.make_test_image(40, seed=3)
     r = np.random.default_rng(3)
     dys, dxs = r.integers(0, 64, 5), r.integers(0, 64, 5)

@@ -59,6 +59,8 @@ r = bench.measure(size=40, seams=3, ref_seams=2, check_seams=2,
 assert r["bit_exact_vs_ref"] is True, r
 assert codec.stage_wave(img, [1], [2], 12, 40).shape == (1, 12, 40, 3)
 assert oracle.carve_width(img[:, :12], 9).shape == (12, 9, 3)
+from lqr_tpu_torch import scaling
+from lqr_tpu_torch.parallel import make_process_mesh
 print(json.dumps(lqr_tpu_torch.__all__))
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "lqr_tpu"))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The end-to-end timings of chip_smoke.py phase 5 for the checkout at ROOT.
 
-    python3 tools/ab_timing.py ROOT LABEL [--kernels | --batch]
+    python3 tools/ab_timing.py ROOT LABEL [--kernels | --batch | --sharded]
 
 Imports ROOT's chip_smoke.py and ROOT's lqr_tpu_torch, builds its kernels,
 and times what phase 5 times: 100 seams at 2048x2048 through both
@@ -12,8 +12,8 @@ kernels (dp_energy_forward, backtrack_compact) at 2048x2048. With
 --kernels it times instead the DP and backtrack kernels alone (CUDA events,
 the mean of 50 launches) at the shapes their routes give them: 2048x2048,
 1024x768 with rigidity, 512x384; with --batch only BatchCarver.carve on
-cfg5 and the cfg4 wave, first in a fresh process. Each line is prefixed
-with LABEL. To compare two
+cfg5 and the cfg4 wave, first in a fresh process; with --sharded only
+the column-sharded 2048x2048. Each line is prefixed with LABEL. To compare two
 commits on one card, unpack the other with ``git archive`` and run both in
 turns in one call, one process each: parent, change, change, parent.
 """
@@ -91,13 +91,14 @@ def main(argv: list[str]) -> int:
     dev = torch.device("cuda", 0)
     gpu = torch.cuda.get_device_name(0)
     batch_only = argv[2:] == ["--batch"]
-    if not batch_only:
+    sharded_only = argv[2:] == ["--sharded"]
+    if not (batch_only or sharded_only):
         time_fused_kernel(smoke, dev, label)
     if argv[2:] == ["--kernels"]:
         time_kernels(smoke, dev, label)
         return 0
     N, seams = smoke.N, smoke.SEAMS
-    if not batch_only:
+    if not (batch_only or sharded_only):
         smoke.time_routes(dev, f"{N}x{N}", (N, N),
                           [engine._extend_per_seam, engine._extend_resident,
                            smoke.fused_split, smoke.fused_inline], seams, gpu)
@@ -106,18 +107,19 @@ def main(argv: list[str]) -> int:
         smoke.time_routes(dev, "1024x768 with bias and rig", smoke.CFG2,
                           routes, seams, gpu, c2["bias"], c2["rig"])
         smoke.time_routes(dev, "512x384", smoke.CFG1, routes, seams, gpu)
-    frames, counts = smoke.cfg5_inputs()
-    smoke._median_runs("cfg5 BatchCarver.carve",
-                       lambda: BatchCarver(frames, device=dev),
-                       lambda bc: bc.carve(counts), int(counts.sum()),
-                       "img_seams", gpu)
-    del frames
-    wave = smoke.cfg4_inputs()
-    smoke._median_runs("cfg4 wave BatchCarver.carve",
-                       lambda: BatchCarver(wave, device=dev),
-                       lambda bc: bc.carve(smoke.CFG4[3]),
-                       len(wave) * smoke.CFG4[3], "img_seams", gpu)
-    del wave
+    if not sharded_only:
+        frames, counts = smoke.cfg5_inputs()
+        smoke._median_runs("cfg5 BatchCarver.carve",
+                           lambda: BatchCarver(frames, device=dev),
+                           lambda bc: bc.carve(counts), int(counts.sum()),
+                           "img_seams", gpu)
+        del frames
+        wave = smoke.cfg4_inputs()
+        smoke._median_runs("cfg4 wave BatchCarver.carve",
+                           lambda: BatchCarver(wave, device=dev),
+                           lambda bc: bc.carve(smoke.CFG4[3]),
+                           len(wave) * smoke.CFG4[3], "img_seams", gpu)
+        del wave
     if batch_only:
         return 0
     img = smoke.make_test_image(N)
