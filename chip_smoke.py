@@ -35,7 +35,8 @@ Phases, one line each (any failure exits non-zero):
              32*delta_x lanes each side (the card's shard of the
              distinct-device mesh below, timed there), delta_x 1 and 2,
              rigidity on and off, `first` on and off, and a slab of 30001
-             lanes (its frontier in global scratch). dp_sharded (the
+             lanes (its frontier in global scratch); and R=32 over phase
+             10's shard of 1024 columns (timed there). dp_sharded (the
              column-sharded DP of one seam, one cluster launch for all
              shards) against the per-block loop with dp_block's plain
              version (SHARDED_CASES): 2048x2048 on 4 shards (the sharded
@@ -147,6 +148,19 @@ Phases, one line each (any failure exits non-zero):
              card (one dp_sharded and one backtrack launch a seam, the
              halo exchanges the design predicts). A non-zero exit, a line
              that is not bit-exact or other launches fail.
+10. cols   — the 'cols' axis across processes that share the card
+             (lqr_tpu_torch.scaling's multiprocess_gloo_resize, called here,
+             its workers on a make_process_mesh over gloo): 2048x2048, 100
+             seams on one row of 2 column shards in 2 processes, then a
+             2 x 2 mesh on 4 processes carving 4 images of 512x384 (cfg1's
+             size) with bias and rigidity, 100 seams. Each worker's
+             gathered map must equal the others' and rank 0's one-process
+             BatchCarver's; each worker launches dp_block H / R times and
+             the backtrack once a seam step (its own launch counts, set to 0
+             around its carve); the halo messages a row sends a seam must be
+             the design's (n_cols - 1)(2H/R + 3). The ms a seam, each
+             worker's ms in its messages and its launches are printed with
+             the card's name and power limit.
 
 The card's name and power limit (nvidia-smi) stand on a line of their own;
 the line before the last is a JSON object with one entry per kernel: its
@@ -178,6 +192,7 @@ CFG4 = (1024, 1024, 256, 256)  # (h, w), images in one wave, seams each
 CFG4_KC = 8           # seams of phase 3's batched launch at the cfg4 shape
 SHARDS = 4            # column shards of the one card
 DISTINCT = (384, 1024)  # (h, w) on the card and the CPU, 2 column shards
+COLS_W = N // 2       # phase 10's shard width: N columns on 2 processes
 # the ragged batch: (h, w, seams) of each image
 RAGGED = ((360, 640, 60), (300, 512, 40), (480, 600, 100), (200, 384, 30),
           (360, 560, 90), (240, 320, 50), (480, 640, 80), (128, 256, 20))
@@ -1074,7 +1089,8 @@ def check_dp_block(device) -> dict:
     """Phase 3: dp_block against its plain version at the shape of the
     card's shard of run_sharded_distinct's mesh (DISTINCT): R = 32 rows
     over a shard of 512 columns extended by G = 32 * delta_x lanes each
-    side, +inf at one mesh edge, timed there at delta_x 1."""
+    side, +inf at one mesh edge, timed there at delta_x 1; and at phase
+    10's shard of 1024 columns, timed there too."""
     import torch
     from lqr_tpu_torch.ops import dp_block as db
 
@@ -1132,7 +1148,27 @@ def check_dp_block(device) -> dict:
     say("kernels", f"dp_block R={R} We={Wl + 2 * G} delta_x=1 (the card's "
         f"shard of the {DISTINCT[1]}x{DISTINCT[0]} distinct-device mesh): "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"err": err, "ms": ms, "plain_ms": plain_ms}
+    # phase 10's shape: a 2048^2 image's shard of 1024 columns on one row of
+    # 2 column shards, extended by G = 32 lanes each side
+    We = COLS_W + 2 * G
+    e, _ = _random_case(R, We - G, We, 1, False, 51, device)
+    m0 = e[0].flip(0).contiguous()
+    m0[We - G:] = torch.inf
+    for first in (False, True):
+        got = db.dp_block(m0, e, None, True, first, 1, False, N)
+        want = db.dp_block_plain(m0, e, None, True, first, 1, False, N)
+        torch.cuda.synchronize()
+        if max(_max_err(got[0], want[0]), _max_err(got[1], want[1])) != 0.0:
+            raise AssertionError(f"dp_block differs from plain at We={We}")
+    cols_ms = _cuda_ms(lambda: db.dp_block(m0, e, None, True, False, 1,
+                                           False, N), 50)
+    cols_plain = _cuda_ms(lambda: db.dp_block_plain(m0, e, None, True,
+                                                    False, 1, False, N), 3)
+    say("kernels", f"dp_block R={R} We={We} delta_x=1 (phase 10's shard of "
+        f"{N}x{N} on 2 column shards), first on/off: max_abs_err=0.0 "
+        f"(tolerance 0); kernel {cols_ms:.4f} ms, plain {cols_plain:.4f} ms")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "cols": cols_ms,
+            "cols_plain": cols_plain}
 
 
 # The one-launch column-sharded DP's cases: (shards, H, W, delta_x,
@@ -1400,7 +1436,7 @@ def kernel_bounds(n: int) -> dict:
     # the batched entry's timed batch: (h, w, seams) per map, delta_x 2,
     # bias and rig, padded to 360 x 640 (check_resident_batched)
     batch = ((360, 640, 32), (300, 600, 0), (200, 500, 20), (360, 620, 25))
-    R, We = 32, DISTINCT[1] // 2 + 2 * 32
+    R, We, We_c = 32, DISTINCT[1] // 2 + 2 * 32, COLS_W + 2 * 32
     c4_h, c4_w, c4_B, _ = CFG4
     wh, ww = WIDE_STEP
     per_res = _energy_ops(0, True) + _dp_ops(1, True)
@@ -1430,6 +1466,9 @@ def kernel_bounds(n: int) -> dict:
         # the card's shard of the distinct-device mesh, one block of rows
         "dp_block": _bound(4 * R * We + 2 * 4 * We + R * We,
                            R * We * _dp_ops(1, False)),
+        # phase 10's shard of 1024 columns and its halos, one block of rows
+        "dp_block cols": _bound(4 * R * We_c + 2 * 4 * We_c + R * We_c,
+                                R * We_c * _dp_ops(1, False)),
         # the 2048^2 path's seam on SHARDS shards: E read once, bp and
         # M_last written once, the operations of the own cells (the halo
         # slabs are columns of the same E; the frontiers cross in shared
@@ -2422,6 +2461,56 @@ def run_scaling() -> None:
         f"expected: {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 10: (processes, column shards a row) of each process mesh
+PROCESS_COLS = ((2, 2), (4, 2))
+
+
+def run_process_cols(gpu) -> dict:
+    """Phase 10: the 'cols' axis across processes that share the card, each
+    mesh carved by lqr_tpu_torch.scaling's workers; every line checked.
+    Returns the workers' launches of dp_block and the backtrack, summed."""
+    import torch
+    from lqr_tpu_torch import scaling
+    torch.cuda.empty_cache()        # the card's memory for its processes
+    total = {"dp_block": 0, "backtrack": 0}
+    for procs, cols in PROCESS_COLS:
+        label = f"{procs} processes as {procs // cols} x {cols}"
+        t0 = time.perf_counter()
+        line = scaling.multiprocess_gloo_resize("cuda", False, procs, cols)
+        say("cols", json.dumps(line))
+        if line["ok"] is not True or line["bit_exact"] is not True:
+            raise AssertionError(f"{label}: not ok: halo "
+                                 f"{line['halo_messages_per_seam']} against "
+                                 f"{line['halo_messages_predicted']}, "
+                                 f"bit_exact {line['bit_exact']}")
+        for w in line["workers"]:
+            steps = w["images"] * w["seams"]
+            if w["device"] != "cuda:0" or w["img_seams"] != steps:
+                raise AssertionError(f"{label}: rank {w['rank']} on "
+                                     f"{w['device']}, {w['img_seams']} "
+                                     f"img_seams")
+            _expect_launches(f"{label} rank {w['rank']}",
+                             {k: w["launches"].get(k, 0)
+                              for k in _launches()},
+                             _only(dp_block=steps * (w["H"]
+                                                     // w["block_rows"]),
+                                   backtrack=steps))
+            for kname in total:
+                total[kname] += w["launches"][kname]
+        w0 = line["workers"][0]
+        say("cols", f"{label}, {w0['images']} image(s) of {w0['H']} rows a "
+            f"row, {w0['seams']} seams, R={line['block_rows']}: "
+            f"{line['ms_per_seam']:.3f} ms a seam step; in messages "
+            f"{[round(x, 3) for x in line['exchange_ms_per_seam']]} ms a "
+            f"step by rank; launches a step "
+            f"{line['launches_per_seam'][0]} in every worker; halo messages "
+            f"a step {line['halo_messages_per_seam']} (predicted "
+            f"{line['halo_messages_predicted']}); every worker's map "
+            f"bit-equal to one process's; {time.perf_counter() - t0:.1f} s "
+            f"with the workers' start; {gpu}")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2457,7 +2546,7 @@ def main() -> int:
         r = check(device)
         for key in ("err", "ms", "plain_ms"):
             k[key][kname] = r[key]
-        for cell in ("cfg2", "cfg4"):
+        for cell in ("cfg2", "cfg4", "cols"):
             if cell in r:
                 k["ms"][f"{kname} {cell}"] = r[cell]
     r = check_carve_step(device, N)
@@ -2516,6 +2605,8 @@ def main() -> int:
         time_interactive(device, pathlib.Path(tmp), gpu)
     run_entry_points(device)
     run_scaling()
+    for kname, count in run_process_cols(gpu).items():
+        launches[kname] += count
 
     replaces = {"dp_forward": "lqr_tpu/ops/dp_pallas.py:351",
                 "backtrack": "lqr_tpu/ops/dp_pallas.py:547",
@@ -2538,7 +2629,9 @@ def main() -> int:
                          ("dp_energy_forward wide",
                           "x".join(map(str, WIDE_STEP))),
                          ("backtrack_compact masks",
-                          f"{N}x{N} with bias and rig")):
+                          f"{N}x{N} with bias and rig"),
+                         ("dp_block cols",
+                          f"R=32, We={COLS_W + 64} (phase 10's shard)")):
         say("bounds", f"{kname.split()[0]} at {shape}: "
             f"{k['ms'][kname]:.4f} ms, bound {bounds[kname][0]:.4f} ms "
             f"({bounds[kname][1]})")

@@ -12,9 +12,11 @@ Unlike the Pallas kernel, ``We`` need not be a multiple of 128, and any
 width is taken: the kernel (``csrc/dp_block.cu``) holds its two frontier
 rows in shared memory, or in a ``[2, We]`` f32 scratch in device memory when
 they do not fit it. ``dp_blocked`` is the loop of JAX's ``block_step`` over
-every block of rows and every shard, one ``dp_block`` call each, with the
-halo exchange between blocks as explicit copies to each shard's device:
-the form that crosses devices.
+every block of rows and every shard this process holds, one ``dp_block``
+call each, with the halo exchange between blocks through a ``shift``: by
+default copies to each shard's device (``copy_halos``), the shards all in
+this process; ``parallel/sharding.py`` passes the messages between the
+processes of a mesh row. The form that crosses devices and processes.
 
 ``dp_sharded`` runs the same forward DP of one seam for up to MAX_SHARDS
 shards that all lie on one CUDA device as one launch of
@@ -33,6 +35,7 @@ There is no fallback from a failed launch to the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -41,8 +44,9 @@ from ..errors import LqrConfigError
 from ..i18n import _
 from . import _build, dp_cuda
 
-__all__ = ["dp_block", "dp_block_plain", "dp_blocked", "dp_sharded",
-           "dp_sharded_plain", "sharded_geometry", "MAX_SHARDS"]
+__all__ = ["dp_block", "dp_block_plain", "dp_blocked", "copy_halos",
+           "dp_sharded", "dp_sharded_plain", "sharded_geometry",
+           "MAX_SHARDS"]
 
 INF = float("inf")
 # csrc/dp_sharded.cu: the most shards (blocks of the cluster), the most
@@ -116,20 +120,47 @@ def dp_block_plain(m0, e_ext, rig_ext, pref_left: bool, first: bool,
     return M, bp
 
 
+def copy_halos(devices, to_left, to_right, shape=None, dtype=None):
+    """The halo shift of a mesh row whose shards all lie in this process,
+    shard c on devices[c]: to_left(c) / to_right(c) build shard c's message
+    to its left / right neighbour (None: nothing goes that way). Returns
+    (from_left, from_right), each shard's received message on its device,
+    None at the row's edges; every message is built before any moves. The
+    received messages' shape and dtype, which a receiver in another process
+    must know, are not needed here."""
+    n = len(devices)
+    sent_r = [to_right(c) for c in range(n - 1)] if to_right else None
+    sent_l = [to_left(c) for c in range(1, n)] if to_left else None
+    fl, fr = [None] * n, [None] * n
+    for c in range(1, n):
+        if sent_r is not None:
+            fl[c] = sent_r[c - 1].to(devices[c])
+        if sent_l is not None:
+            fr[c - 1] = sent_l[c - 1].to(devices[c - 1])
+    return fl, fr
+
+
 def dp_blocked(e_loc, rig_loc, pref_left: bool, delta_x: int, has_rig: bool,
-               H: int, R: int, devices, block=dp_block):
+               H: int, R: int, devices, block=dp_block, shift=None):
     """The column-sharded forward DP as one ``block`` call per block of R
-    rows and shard. e_loc / rig_loc: per-shard [H, Wl] tensors (rig_loc
-    None without rigidity), shard c on devices[c]. Each block, every shard
-    sends each neighbour its G = max(R * delta_x, 1) edge frontier values
-    and [R, G] energy (and rigidity) slab as one packed copy; at the mesh's
-    edges, and for delta_x = 0, the halo is +inf frontier and energy with
-    zero rigidity. Returns (per-shard M_last [Wl], per-shard bp [H, Wl]
-    int8)."""
+    rows and shard. e_loc / rig_loc: the [H, Wl] tensors of the shards this
+    process holds (rig_loc None without rigidity), on devices[i]. Each
+    block, every shard sends each neighbour its G = max(R * delta_x, 1) edge
+    frontier values and [R, G] energy (and rigidity) slab as one packed
+    [1 + R (+ R), G] plane; at the mesh's edges, and for delta_x = 0, the
+    halo is +inf frontier and energy with zero rigidity.
+
+    shift(to_left, to_right, shape, dtype) -> (from_left, from_right) moves
+    the planes between the row's shards (``copy_halos`` past its devices);
+    None: ``copy_halos`` over ``devices``, every shard of the row in this
+    process. Returns (per-shard M_last [Wl], per-shard bp [H, Wl] int8)."""
     n = len(e_loc)
     Wl = e_loc[0].shape[-1]
     G = max(R * delta_x, 1)      # halo width (>= 1 keeps shapes non-empty)
-    exchange = n > 1 and delta_x > 0
+    if shift is None and n > 1:
+        shift = functools.partial(copy_halos, devices)
+    exchange = shift is not None and delta_x > 0
+    plane = (1 + R * (2 if has_rig else 1), G)
     inf_f = [torch.full((G,), INF, device=dv) for dv in devices]
     inf_e = [torch.full((R, G), INF, device=dv) for dv in devices]
     zero_r = [torch.zeros((R, G), device=dv) for dv in devices]
@@ -142,30 +173,29 @@ def dp_blocked(e_loc, rig_loc, pref_left: bool, delta_x: int, has_rig: bool,
         r_blk = [r[rows] for r in rig_loc] if has_rig else None
 
         def pack(c, sl):
-            """The [1 + R (+ R), G] plane one shard sends one neighbour:
-            frontier, energy slab and rigidity slab in one copy."""
+            """The plane one shard sends one neighbour: frontier, energy
+            slab and rigidity slab in one message."""
             parts = [M[c][None, sl], e_blk[c][:, sl]]
             if has_rig:
                 parts.append(r_blk[c][:, sl])
             return torch.cat(parts, dim=0)
 
+        fl, fr = [None] * n, [None] * n
         if exchange:   # every shard sends before any frontier moves on
-            to_right = [pack(c, slice(Wl - G, Wl)) for c in range(n - 1)]
-            to_left = [None] + [pack(c, slice(0, G)) for c in range(1, n)]
+            fl, fr = shift(lambda c: pack(c, slice(0, G)),
+                           lambda c: pack(c, slice(Wl - G, Wl)), plane,
+                           torch.float32)
 
         def unpack(halo, c):
             if halo is None:
                 return inf_f[c], inf_e[c], zero_r[c]
-            halo = halo.to(devices[c])
             return (halo[0], halo[1:1 + R],
                     halo[1 + R:] if has_rig else zero_r[c])
 
         for c in range(n):
-            fl, el, rl = unpack(to_right[c - 1] if exchange and c > 0
-                                else None, c)
-            fr, er, rr = unpack(to_left[c + 1] if exchange and c < n - 1
-                                else None, c)
-            m_ext = torch.cat([fl, M[c], fr])
+            a, el, rl = unpack(fl[c], c)
+            b, er, rr = unpack(fr[c], c)
+            m_ext = torch.cat([a, M[c], b])
             e_ext = torch.cat([el, e_blk[c], er], dim=1)
             r_ext = (torch.cat([rl, r_blk[c], rr], dim=1) if has_rig
                      else None)

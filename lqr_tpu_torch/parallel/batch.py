@@ -301,9 +301,11 @@ class BatchCarver:
         heights only). The state lives on the mesh's devices; without a
         mesh it lives on ``device``. On a mesh over processes
         (``make_process_mesh``) every process passes the same images and
-        carves the rows it holds; ``state``, ``images_at`` and ``aux_at``
-        then all-gather the rows over the group, so every process calls
-        them."""
+        counts and carves the shard it holds (a column shard's seam steps
+        with the other processes of its row); ``carve``, ``state``,
+        ``images_at`` and ``aux_at`` are then collectives (every process
+        calls them), the last three all-gathering the shards over the
+        group."""
         if len(images) == 0:
             raise LqrImageError(_("BatchCarver needs at least one image"))
         if isinstance(images, np.ndarray) and images.ndim == 4:
@@ -405,8 +407,11 @@ class BatchCarver:
             raise LqrImageError(
                 _("column sharding requires equal image heights (pad or "
                   "batch same-height images together)"))
-        dev = (mesh.devices[mesh.local_rows[0]][0] if mesh is not None
-               else resolve_device(device))
+        if mesh is None:
+            dev = resolve_device(device)
+        else:
+            d, c = mesh.local_shards[0]
+            dev = mesh.devices[d][c]
         st = init_state_batched(self.cfg, buf, widths, bias=bias_f,
                                 rig=rig_f, aux=aux_planes, device=dev)
         self._state = (st if mesh is None

@@ -6,20 +6,30 @@ Counterpart of ``lqr_tpu.parallel.sharding``:
   appear more than once: four column shards on one GPU run the column-
   sharded path on a one-GPU machine, eight CPU shards run it in the tests.
   ``make_mesh`` builds a mesh in one process, the way ``shard_map`` runs
-  one controller. ``make_process_mesh`` builds one whose 'data' rows lie
-  in the processes of a ``torch.distributed`` group, one row a process, as
-  a JAX mesh spans the devices of several processes.
+  one controller. ``make_process_mesh`` builds one whose shards lie in the
+  processes of a ``torch.distributed`` group, a shard a process in rank
+  order, as a JAX mesh spans the devices of several processes: with one
+  'data' row a process the rows exchange nothing; a row of several column
+  shards exchanges its halos and gathers between its processes.
 - A sharded state (``ShardedState``) keeps each shard as its own tensors on
-  its device; on a mesh over processes each process holds its own row
-  only. Every exchange between column shards is an explicit copy to the
-  neighbour's device (but the DP's halos on one CUDA device, below);
-  the gathers (the frontier and backpointers for the backtrack, the row
-  counts for the commit) are a ``torch.cat`` onto one device. ``gather_state``
-  of a mesh over processes all-gathers the rows over the group, as host
-  copies (the group's backend must take CPU tensors: gloo).
-- ``EXCHANGES`` counts the messages between shards, by kind: each is a
-  copy where the two shards lie on distinct devices or processes, and a
-  read in place where they share a device.
+  its device; on a mesh over processes each process holds its own shard
+  only. The exchanges of a mesh row's column shards go through one
+  interface (``_LocalRow``, ``_ProcessRow``): a shift of each shard's halo
+  to its left and right neighbours, a gather of the row's parts (the
+  frontier and backpointers for the backtrack, the row counts for the
+  commit) and the spread of what was computed from them back to the
+  shards. In one process it is copies to the neighbour's device and a
+  ``torch.cat`` onto the row's first device (but the DP's halos on one CUDA
+  device, below); across processes, point-to-point messages and
+  all-gathers over the row's gloo subgroup as host copies, every process
+  then computing the seam itself. ``gather_state`` of a mesh over
+  processes all-gathers the shards over the group, as host copies (the
+  group's backend must take CPU tensors: gloo).
+- ``EXCHANGES`` counts the messages between shards that this process
+  sends, by kind: each is a copy where the two shards lie on distinct
+  devices or processes, and a read in place where they share a device.
+  ``EXCHANGE_SECONDS`` holds the wall time of the messages between
+  processes, host copies included.
 
 Axis ``data`` splits the batch: each shard carves its images with the
 batched routes of ``parallel.batch``, with no exchange at all.
@@ -37,14 +47,15 @@ poison e + rig·rigc in the cone).
 Which kernel runs the DP is a rule of placement (``dp_route``), the same
 for every seam:
 
-- every shard of the mesh row on one CUDA device, at most 8 of them: one
-  launch of ``dp_sharded`` (``csrc/dp_sharded.cu``) a seam, a thread-block
-  cluster of one block per shard with the halos read from the neighbours'
-  shared memory and planes, at any shard width;
-- shards on distinct devices, or more than 8 on one device (more blocks
-  than a cluster holds): ``dp_blocked``, one ``dp_block`` launch
-  (``csrc/dp_block.cu``) per block of rows and shard, the halos sent as one
-  packed copy per neighbour per block, the only form that crosses devices;
+- every shard of the mesh row on one CUDA device in one process, at most
+  8 of them: one launch of ``dp_sharded`` (``csrc/dp_sharded.cu``) a
+  seam, a thread-block cluster of one block per shard with the halos read
+  from the neighbours' shared memory and planes, at any shard width;
+- shards on distinct devices or in distinct processes, or more than 8 on
+  one device (more blocks than a cluster holds): ``dp_blocked``, one
+  ``dp_block`` launch (``csrc/dp_block.cu``) per block of rows and shard,
+  the halos sent as one packed message per neighbour per block, the only
+  form that crosses devices and processes;
 - CPU shards: ``dp_blocked`` with the plain version of ``dp_block``.
 
 The backtrack of the gathered map runs on the backtrack kernel on CUDA
@@ -54,7 +65,9 @@ tensors and on its plain version on CPU tensors.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -69,21 +82,27 @@ from ..core.state import EngineConfig, MapState, resolve_device
 from ..errors import LqrConfigError, LqrImageError
 from ..i18n import _
 from ..ops import dp_cuda
-from ..ops.dp_block import MAX_SHARDS, dp_blocked, dp_sharded
+from ..ops.dp_block import MAX_SHARDS, copy_halos, dp_blocked, dp_sharded
 
 __all__ = ["Mesh", "ShardedState", "make_mesh", "make_process_mesh",
            "shard_batch_state", "gather_state", "map_data_shards",
            "find_seam_sharded", "extend_map_sharded", "sharded_seam_step",
-           "dp_route", "EXCHANGES"]
+           "dp_route", "EXCHANGES", "EXCHANGE_SECONDS"]
 
 INF = float("inf")
 
 # Messages between shards, by kind: "halo" (a column shard's neighbour
 # values: the energy's one column, the DP's halo of each block of rows,
-# the compaction's carry column), "gather" (to and from a mesh row's first
-# shard: the backtrack's inputs, the seam, the commit's row counts) and
-# "process" (an all-gather over a mesh's process group).
+# the compaction's carry column), "gather" (within a mesh row: the
+# backtrack's inputs, the seam, the commit's row counts; across processes
+# an all-gather over the row, one message of each process) and "process"
+# (an all-gather over a mesh's process group).
 EXCHANGES = {"halo": 0, "gather": 0, "process": 0}
+# Seconds in the messages between the processes of a mesh row, by kind
+EXCHANGE_SECONDS = {"halo": 0.0, "gather": 0.0, "process": 0.0}
+# gloo tags of the halos between a row's processes: no message of one
+# kind can meet the receive of another
+_TAGS = {"energy": 1, "dp": 2, "carry": 3}
 
 
 def _send(kind: str, t: torch.Tensor, device) -> torch.Tensor:
@@ -96,25 +115,43 @@ def _send(kind: str, t: torch.Tensor, device) -> torch.Tensor:
 class Mesh:
     """A (data, cols) grid of devices: ``devices[d][c]``. A mesh over
     processes (``make_process_mesh``) also has the ``torch.distributed``
-    group and ``ranks[d]``, the group rank of the process that holds row d;
-    a device of another process's row is that process's device."""
+    group, ``ranks``, the group rank of the process that holds each shard
+    (row-major: shard (d, c) at d * cols + c), and with a 'cols' axis
+    ``row_groups``, a gloo subgroup of each row's processes; a device of
+    another process's shard is that process's device."""
 
     devices: tuple
     group: object = None
     ranks: tuple | None = None
+    row_groups: tuple | None = None
 
     @property
     def shape(self) -> dict:
         return {"data": len(self.devices), "cols": len(self.devices[0])}
 
+    def rank_of(self, d: int, c: int):
+        """The group rank of the process that holds shard (d, c); None on a
+        mesh in one process."""
+        if self.ranks is None:
+            return None
+        return self.ranks[d * len(self.devices[0]) + c]
+
+    @property
+    def local_shards(self) -> tuple:
+        """The (row, column) shards this process holds: every shard of a
+        mesh in one process."""
+        cells = [(d, c) for d in range(len(self.devices))
+                 for c in range(len(self.devices[0]))]
+        if self.ranks is None:
+            return tuple(cells)
+        me = dist.get_rank(self.group)
+        return tuple(dc for dc in cells if self.rank_of(*dc) == me)
+
     @property
     def local_rows(self) -> tuple:
-        """The 'data' rows this process holds: every row of a mesh in one
-        process."""
-        if self.ranks is None:
-            return tuple(range(len(self.devices)))
-        me = dist.get_rank(self.group)
-        return tuple(d for d, r in enumerate(self.ranks) if r == me)
+        """The 'data' rows this process holds a shard of: every row of a
+        mesh in one process."""
+        return tuple(sorted({d for d, _c in self.local_shards}))
 
 
 def make_mesh(n_devices: int | None = None, data: int | None = None,
@@ -147,18 +184,34 @@ def make_mesh(n_devices: int | None = None, data: int | None = None,
                       for r in range(data)))
 
 
+def _takes_cpu(group) -> bool:
+    """Whether the group's backend carries CPU tensors ("gloo", "mpi", or a
+    device map such as "cpu:gloo,cuda:nccl" with a CPU entry; "nccl" alone
+    carries CUDA tensors only)."""
+    backend = str(dist.get_backend(group)).lower()
+    if ":" in backend:
+        return any(part.split(":")[0] == "cpu"
+                   for part in backend.split(","))
+    return backend != "nccl"
+
+
 def make_process_mesh(data: int | None = None, device=None,
                       group=None) -> Mesh:
-    """A mesh whose 'data' rows lie in the processes of an initialized
-    ``torch.distributed`` group (``group``, else the default group): one
-    row a process, in rank order, on the process's ``device``, by default
-    ``cuda:(LOCAL_RANK % device_count)`` (the group rank where LOCAL_RANK is
-    unset); pass ``device="cpu"`` for CPU rows. The caller initializes the
-    group; building the mesh is collective (every process calls it).
+    """A mesh whose shards lie in the processes of an initialized
+    ``torch.distributed`` group (``group``, else the default group), a
+    shard a process: ``data`` rows (the group's size n by default, one row a
+    process) of n / data column shards, in rank order (group rank r holds
+    shard (r // cols, r % cols)), each on its process's ``device``, by
+    default ``cuda:(LOCAL_RANK % device_count)`` (the group rank where
+    LOCAL_RANK is unset); pass ``device="cpu"`` for CPU shards. The caller
+    initializes the group; building the mesh is collective (every process
+    calls it), and with a 'cols' axis it makes a gloo subgroup of each
+    row's processes (``dist.new_group``, which every process of the default
+    group enters, for every row in the same order).
 
-    data: the 'data' rows, the group's size by default. Fewer rows would
-    put a 'cols' axis across processes, which raises LqrConfigError: its
-    halo exchange between GPUs needs a machine with two or more."""
+    The shards exchange host copies (``gather_state``, the column path), so
+    the group's backend must carry CPU tensors (gloo); an NCCL-only group
+    raises LqrConfigError, as does a ``data`` that does not divide n."""
     if not (dist.is_available() and dist.is_initialized()):
         raise LqrConfigError(
             _("make_process_mesh needs an initialized torch.distributed "
@@ -166,16 +219,15 @@ def make_process_mesh(data: int | None = None, device=None,
               "first"))
     group = group or dist.group.WORLD
     n = dist.get_world_size(group)
-    if data is not None and data != n:
-        if not 1 <= data <= n or n % data != 0:
-            raise LqrConfigError(
-                _("{n} devices cannot form {d} 'data' rows")
-                .format(n=n, d=data))
+    data = n if data is None else data
+    if not 1 <= data <= n or n % data != 0:
         raise LqrConfigError(
-            _("{n} processes as {d} 'data' rows would put a 'cols' axis "
-              "across processes: its halo exchange between GPUs needs a "
-              "machine with two or more; make_process_mesh puts one 'data' "
-              "row in each process").format(n=n, d=data))
+            _("{n} devices cannot form {d} 'data' rows").format(n=n, d=data))
+    if not _takes_cpu(group):
+        raise LqrConfigError(
+            _("make_process_mesh needs a process group whose backend "
+              "carries CPU tensors (gloo); {b} does not")
+            .format(b=dist.get_backend(group)))
     if device is None:
         if not torch.cuda.is_available():
             raise LqrConfigError(
@@ -185,15 +237,27 @@ def make_process_mesh(data: int | None = None, device=None,
         device = torch.device("cuda", local % torch.cuda.device_count())
     names = [None] * n
     dist.all_gather_object(names, str(resolve_device(device)), group=group)
-    return Mesh(tuple((torch.device(d),) for d in names), group=group,
-                ranks=tuple(range(n)))
+    cols = n // data
+    row_groups = None
+    if cols > 1:
+        row_groups = tuple(
+            dist.new_group([dist.get_global_rank(group, r)
+                            for r in range(d * cols, (d + 1) * cols)],
+                           backend="gloo")
+            for d in range(data))
+    return Mesh(tuple(tuple(torch.device(x)
+                            for x in names[d * cols:(d + 1) * cols])
+                      for d in range(data)),
+                group=group, ranks=tuple(range(n)), row_groups=row_groups)
 
 
 class ShardedState(NamedTuple):
     """A batched MapState split over a mesh: ``shards[d][c]`` is the MapState
     of data row d's images and (with ``cols``) column shard c's columns, on
     ``mesh.devices[d][c]``; without ``cols`` each row has one shard, on
-    ``mesh.devices[d][0]``. ref_w and depth are the row's, in every shard."""
+    ``mesh.devices[d][0]``. On a mesh over processes the shards of other
+    processes are None (a row none of whose shards this process holds is
+    None). ref_w and depth are the row's, in every shard."""
 
     mesh: Mesh
     cols: bool
@@ -207,7 +271,7 @@ def shard_batch_state(st: MapState, mesh: Mesh,
                       cols: bool = False) -> ShardedState:
     """Split a batched MapState over the mesh: the batch over 'data', and
     with cols=True the image columns over 'cols'. On a mesh over processes
-    every process passes the whole batch and keeps a copy of its own rows
+    every process passes the whole batch and keeps a copy of its own shard
     (the others are None), so the whole batch can be freed."""
     B, _H, Wb = st.vs.shape
     n_data = mesh.shape["data"]
@@ -222,7 +286,7 @@ def shard_batch_state(st: MapState, mesh: Mesh,
             _("width {w} cannot shard evenly over {n} 'cols' devices")
             .format(w=Wb, n=n_cols))
     Bd, Wl = B // n_data, Wb // n_cols
-
+    local = set(mesh.local_shards)
     copy = mesh.ranks is not None     # no view may keep the whole batch
 
     def put(a, d, c):
@@ -234,41 +298,52 @@ def shard_batch_state(st: MapState, mesh: Mesh,
         a = a.to(mesh.devices[d][c]).contiguous()
         return a.clone() if copy else a
 
+    def shard(d, c):
+        sl = slice(d * Bd, (d + 1) * Bd)
+        return MapState(**{name: put(getattr(st, name), d, c)
+                           for name in _STATE_PLANES},
+                        aux=tuple(put(a, d, c) for a in st.aux),
+                        ref_w=st.ref_w[sl].copy(), depth=st.depth[sl].copy())
+
     rows = [None] * n_data
     for d in mesh.local_rows:
-        sl = slice(d * Bd, (d + 1) * Bd)
-        rows[d] = tuple(
-            MapState(**{name: put(getattr(st, name), d, c)
-                        for name in _STATE_PLANES},
-                     aux=tuple(put(a, d, c) for a in st.aux),
-                     ref_w=st.ref_w[sl].copy(), depth=st.depth[sl].copy())
-            for c in range(n_cols))
+        rows[d] = tuple(shard(d, c) if (d, c) in local else None
+                        for c in range(n_cols))
     return ShardedState(mesh, cols, tuple(rows))
 
 
 def _gather_processes(sst: ShardedState) -> MapState:
-    """gather_state of a mesh over processes: every row's shard all-gathered
-    over the group as host copies, onto this process's device."""
+    """gather_state of a mesh over processes: every shard all-gathered over
+    the group as host copies, the columns of each row joined, then the
+    rows, onto this process's device."""
     mesh = sst.mesh
-    (st,) = sst.shards[mesh.local_rows[0]]
+    d0, c0 = mesh.local_shards[0]
+    st = sst.shards[d0][c0]
     dev = st.vs.device
+    n_data, n_cols = mesh.shape["data"], len(sst.shards[d0])
 
-    def gather(t):
-        """t of every row, in row order, on the host."""
+    def gather(t, join_cols: bool):
+        """t of every shard on the host: the rows in order, each the join
+        of its columns (join_cols) or its first column's t."""
         host = t.cpu().contiguous()
         parts = [torch.empty_like(host) for _ in mesh.ranks]
+        t0 = time.perf_counter()
         dist.all_gather(parts, host, group=mesh.group)
+        EXCHANGE_SECONDS["process"] += time.perf_counter() - t0
         EXCHANGES["process"] += 1
-        return torch.cat([parts[r] for r in mesh.ranks])
+        rows = [[parts[mesh.rank_of(d, c)] for c in range(n_cols)]
+                for d in range(n_data)]
+        return torch.cat([torch.cat(r, dim=2) if join_cols else r[0]
+                          for r in rows])
 
     def plane(t):
-        return None if t is None else gather(t).to(dev)
+        return None if t is None else gather(t, sst.cols).to(dev)
 
     return MapState(
         **{name: plane(getattr(st, name)) for name in _STATE_PLANES},
         aux=tuple(plane(a) for a in st.aux),
-        ref_w=gather(torch.from_numpy(st.ref_w)).numpy(),
-        depth=gather(torch.from_numpy(st.depth)).numpy())
+        ref_w=gather(torch.from_numpy(st.ref_w), False).numpy(),
+        depth=gather(torch.from_numpy(st.depth), False).numpy())
 
 
 def gather_state(sst: ShardedState) -> MapState:
@@ -323,56 +398,181 @@ def _block_rows(H: int, delta_x: int, Wl: int) -> int:
     return 1
 
 
-def dp_route(devices) -> str:
+def dp_route(devices, processes: int = 1) -> str:
     """Where a mesh row's column-sharded DP runs, by the placement of its
-    shards: "cluster" when every shard lies on one CUDA device and they
-    number at most MAX_SHARDS (one dp_sharded launch a seam, a cluster
-    block a shard, the halos through distributed shared memory), else
-    "blocks" (the per-block loop dp_blocked: one dp_block call per block of
-    rows and shard, the halos as copies between the shards' devices; CPU
-    shards run its plain version)."""
+    shards: "cluster" when every shard lies on one CUDA device in one
+    process and they number at most MAX_SHARDS (one dp_sharded launch a
+    seam, a cluster block a shard, the halos through distributed shared
+    memory), else "blocks" (the per-block loop dp_blocked: one dp_block
+    call per block of rows and shard, the halos as messages between the
+    shards' devices or processes; CPU shards run its plain version).
+    processes: how many processes hold the row's shards."""
     devs = {torch.device(d) for d in devices}
-    if (len(devs) == 1 and next(iter(devs)).type == "cuda"
+    if (processes == 1 and len(devs) == 1
+            and next(iter(devs)).type == "cuda"
             and len(devices) <= MAX_SHARDS):
         return "cluster"
     return "blocks"
 
 
-def _dp_local_blocked(e_loc, rig_loc, pref_left: bool, delta_x: int,
-                      has_rig: bool, H: int, R: int, devices):
-    """The column-sharded forward DP, placed by dp_route. e_loc / rig_loc:
-    per-shard [H, Wl] tensors (rig_loc None without rigidity), shard c on
-    devices[c]. Returns (per-shard M_last [Wl], per-shard bp [H, Wl]
-    int8).
+class _LocalRow:
+    """The exchanges of a mesh row whose column shards all lie in this
+    process, shard c on devices[c]: copies to the neighbour's device, the
+    gathers a ``torch.cat`` onto the row's first device, and what was
+    computed there copied back to each shard."""
 
-    Each block of R rows, every shard takes a halo from each neighbour:
-    dp_blocked sends them as packed copies, dp_sharded's blocks read them
-    from each other's shared memory; both count here."""
+    processes = 1
+
+    def __init__(self, devices):
+        self.devices = tuple(devices)
+        self.n = len(self.devices)
+        self.cols = tuple(range(self.n))     # the shards this process holds
+
+    def shift(self, tag: str, to_left, to_right, shape, dtype):
+        """to_left(i) / to_right(i): local shard i's message to its left /
+        right neighbour (None: nothing goes that way); returns (from_left,
+        from_right), each local shard's received message on its device,
+        None at the row's edges. tag: the message's kind (a key of _TAGS);
+        shape, dtype: a received message's."""
+        fl, fr = copy_halos(self.devices, to_left, to_right)
+        EXCHANGES["halo"] += sum(m is not None for m in fl + fr)
+        return fl, fr
+
+    def gather(self, parts, dim: int = 0) -> torch.Tensor:
+        """The row's parts (one a local shard) joined along dim on the
+        device where the row's gathered work runs."""
+        dev = self.devices[0]
+        return torch.cat([parts[0].to(dev)]
+                         + [_send("gather", p, dev) for p in parts[1:]],
+                         dim=dim)
+
+    def spread(self, parts) -> list:
+        """parts[c] (one a column, computed from gathered values) on each
+        local shard's device."""
+        return [parts[0]] + [_send("gather", p, dv)
+                             for p, dv in zip(parts[1:], self.devices[1:])]
+
+    def check_steps(self, steps) -> None:
+        """Nothing to check: one process takes every shard's steps."""
+
+
+class _ProcessRow:
+    """The exchanges of this process's column shard (d, c) with the other
+    shards of its mesh row, each in a process of its own: point-to-point
+    messages to the neighbours and all-gathers over the row's gloo subgroup,
+    as host copies (a device tensor's copy waits for the work that writes
+    it). A shift posts all of its sends and receives before it waits on
+    any, so neighbours cannot deadlock. Every process of the row computes
+    what depends on gathered values itself, so nothing is spread."""
+
+    def __init__(self, mesh: Mesh, d: int, c: int):
+        self.n = self.processes = mesh.shape["cols"]
+        self.cols = (c,)
+        self.devices = (mesh.devices[d][c],)
+        self.group = mesh.row_groups[d]
+        peer = [dist.get_global_rank(mesh.group, mesh.rank_of(d, j))
+                for j in range(self.n)]
+        self.left = peer[c - 1] if c > 0 else None
+        self.right = peer[c + 1] if c < self.n - 1 else None
+        # all_gather's parts come in the subgroup's rank order
+        self.slot = [dist.get_group_rank(self.group, g) for g in peer]
+
+    def shift(self, tag: str, to_left, to_right, shape, dtype):
+        """As _LocalRow.shift, over gloo."""
+        t0 = time.perf_counter()
+        ops, bufs = [], {}
+        for make, peer in ((to_left, self.left), (to_right, self.right)):
+            if make is not None and peer is not None:
+                msg = make(0).contiguous().cpu()
+                ops.append(dist.isend(msg, peer, self.group, _TAGS[tag]))
+                EXCHANGES["halo"] += 1
+        # the left neighbour sends right, the right neighbour left
+        for side, make, peer in (("left", to_right, self.left),
+                                 ("right", to_left, self.right)):
+            if make is not None and peer is not None:
+                bufs[side] = torch.empty(shape, dtype=dtype)
+                ops.append(dist.irecv(bufs[side], peer, self.group,
+                                      _TAGS[tag]))
+        for op in ops:
+            op.wait()
+        dev = self.devices[0]
+        got = [[bufs[side].to(dev)] if side in bufs else [None]
+               for side in ("left", "right")]
+        EXCHANGE_SECONDS["halo"] += time.perf_counter() - t0
+        return got[0], got[1]
+
+    def _all_gather(self, t: torch.Tensor) -> list:
+        host = t.contiguous().cpu()
+        parts = [torch.empty_like(host) for _ in range(self.n)]
+        dist.all_gather(parts, host, group=self.group)
+        EXCHANGES["gather"] += 1
+        return [parts[s] for s in self.slot]
+
+    def gather(self, parts, dim: int = 0) -> torch.Tensor:
+        """The row's parts joined along dim on this process's device: an
+        all-gather over the row (this process's part is its shard's)."""
+        t0 = time.perf_counter()
+        (t,) = parts
+        out = torch.cat(self._all_gather(t), dim=dim).to(self.devices[0])
+        EXCHANGE_SECONDS["gather"] += time.perf_counter() - t0
+        return out
+
+    def spread(self, parts) -> list:
+        """This shard's part, already on its device: no message."""
+        return [parts[self.cols[0]]]
+
+    def check_steps(self, steps) -> None:
+        """Raise LqrConfigError unless every process of the row takes the
+        same seam steps (steps: this process's counts, depths and widths);
+        a row that disagrees would hang in its exchanges."""
+        mine = torch.as_tensor(np.asarray(steps, np.int64))
+        if any(not torch.equal(p, mine) for p in self._all_gather(mine)):
+            raise LqrConfigError(
+                _("the processes of a mesh row disagree on the seams to "
+                  "carve: every process must pass the same images and "
+                  "counts"))
+
+
+def _row(mesh: Mesh, d: int):
+    """The exchanges of mesh row d's column shards that this process
+    holds."""
+    if mesh.ranks is None:
+        return _LocalRow(mesh.devices[d])
+    (c,) = [c for dd, c in mesh.local_shards if dd == d]
+    return _ProcessRow(mesh, d, c)
+
+
+def _dp_local_blocked(e_loc, rig_loc, pref_left: bool, delta_x: int,
+                      has_rig: bool, H: int, R: int, devices, row=None):
+    """The column-sharded forward DP, placed by dp_route. e_loc / rig_loc:
+    the [H, Wl] tensors of the row's shards this process holds (rig_loc
+    None without rigidity), on devices[i]; row: the row's exchanges
+    (_LocalRow(devices) by default). Returns (per-shard M_last [Wl],
+    per-shard bp [H, Wl] int8).
+
+    Each block of R rows, every shard takes a halo from each neighbour. In
+    one process dp_blocked copies them and dp_sharded's blocks read them
+    from each other's shared memory, both counted here; across processes
+    the row's shift sends and counts them."""
+    processes = 1 if row is None else row.processes
     n = len(e_loc)
-    if n > 1 and delta_x > 0:
+    if processes == 1 and n > 1 and delta_x > 0:
         EXCHANGES["halo"] += 2 * (n - 1) * (H // R)
-    if dp_route(devices) == "cluster":
+    if dp_route(devices, processes) == "cluster":
         return dp_sharded(e_loc, rig_loc, pref_left, delta_x, has_rig, H, R)
+    if processes > 1:
+        return dp_blocked(e_loc, rig_loc, pref_left, delta_x, has_rig, H, R,
+                          devices, shift=functools.partial(row.shift, "dp"))
     return dp_blocked(e_loc, rig_loc, pref_left, delta_x, has_rig, H, R,
                       devices)
 
 
-def _backtrack_gathered(M_loc, bp_loc, pref_left: bool, dev):
-    """The seam [H] on dev, from the shards' frontiers and backpointers
-    gathered there."""
-    M_all = torch.cat([M_loc[0].to(dev)]
-                      + [_send("gather", m, dev) for m in M_loc[1:]])
-    bp_all = torch.cat([bp_loc[0].to(dev)]
-                       + [_send("gather", b, dev) for b in bp_loc[1:]], dim=1)
-    return dp_cuda.backtrack(M_all, bp_all, pref_left)
-
-
 def find_seam_sharded(mesh: Mesh, e_tot, rig, pref_left: bool,
                       delta_x: int, has_rig: bool) -> torch.Tensor:
-    """Column-sharded seam search over the mesh's first row. e_tot:
-    [H, Wb] (+inf at invalid lanes, bias folded in). The forward DP runs
-    sharded, the backtrack on the gathered map; the seam [H] i32 (on the
-    first device) equals core.dp.find_seam's."""
+    """Column-sharded seam search over the first row of a mesh in one
+    process. e_tot: [H, Wb] (+inf at invalid lanes, bias folded in). The
+    forward DP runs sharded, the backtrack on the gathered map; the seam
+    [H] i32 (on the first device) equals core.dp.find_seam's."""
     H, Wb = e_tot.shape
     devs = mesh.devices[0]
     n = len(devs)
@@ -382,6 +582,7 @@ def find_seam_sharded(mesh: Mesh, e_tot, rig, pref_left: bool,
             .format(w=Wb, n=n))
     Wl = Wb // n
     R = _block_rows(H, delta_x, Wl)
+    row = _LocalRow(devs)
 
     def split(a):
         return [a[:, c * Wl:(c + 1) * Wl].to(devs[c]).contiguous()
@@ -389,87 +590,91 @@ def find_seam_sharded(mesh: Mesh, e_tot, rig, pref_left: bool,
 
     M, bp = _dp_local_blocked(split(e_tot), split(rig) if has_rig else None,
                               pref_left, delta_x, has_rig, H, R, devs)
-    return _backtrack_gathered(M, bp, pref_left, devs[0])
+    return dp_cuda.backtrack(row.gather(M), row.gather(bp, dim=1), pref_left)
 
 
-def _local_energy(cb, w: int, nrg: int, glane, devices):
+def _local_energy(cb, w: int, nrg: int, glane, row):
     """Per-shard energy [H, Wl] of the compacted reader planes at width w:
     the x gradient with a one-column halo from each neighbour (the image's
     edges replicated), the rest as core/energy.py computes it."""
-    n = len(cb)
+    if EnergyFunc(nrg) == EnergyFunc.NULL:
+        return [torch.where(g < w, torch.zeros_like(b), INF)
+                for b, g in zip(cb, glane)]
+    H = cb[0].shape[0]
+    fl, fr = row.shift("energy", lambda i: cb[i][:, :1],
+                       lambda i: cb[i][:, -1:], (H, 1), cb[0].dtype)
     out = []
-    for c, b in enumerate(cb):
-        if EnergyFunc(nrg) == EnergyFunc.NULL:
-            e = torch.zeros_like(b)
-        else:
-            bl_col = (_send("halo", cb[c - 1][:, -1:], devices[c]) if c > 0
-                      else torch.zeros_like(b[:, :1]))
-            br_col = (_send("halo", cb[c + 1][:, :1], devices[c])
-                      if c < n - 1 else torch.zeros_like(b[:, :1]))
-            br = torch.cat([b[:, 1:], br_col], dim=1)
-            br = torch.where(glane[c] >= w - 1, b, br)   # replicate right
-            bl = torch.cat([bl_col, b[:, :-1]], dim=1)
-            bl = torch.where(glane[c] == 0, b, bl)       # replicate left
-            e = energy_from_gx((br - bl) * _f32(0.5), b, nrg)
-        out.append(torch.where(glane[c] < w, e, INF))
+    for b, g, bl_col, br_col in zip(cb, glane, fl, fr):
+        if bl_col is None:
+            bl_col = torch.zeros_like(b[:, :1])
+        if br_col is None:
+            br_col = torch.zeros_like(b[:, :1])
+        br = torch.cat([b[:, 1:], br_col], dim=1)
+        br = torch.where(g >= w - 1, b, br)      # replicate right
+        bl = torch.cat([bl_col, b[:, :-1]], dim=1)
+        bl = torch.where(g == 0, b, bl)          # replicate left
+        e = energy_from_gx((br - bl) * _f32(0.5), b, nrg)
+        out.append(torch.where(g < w, e, INF))
     return out
 
 
 def _carve_seam_local(cb, cbs, crg, vs, w: int, s: int, pref_left: bool,
-                      ref_w: int, *, devices, H: int, delta_x: int, nrg: int,
+                      ref_w: int, *, row, H: int, delta_x: int, nrg: int,
                       R: int):
-    """One carve step of one image on its column shards (lists of [H, Wl]
-    tensors; cbs / crg None when absent): energy with a one-column halo,
-    the blocked DP, the backtrack of the gathered map, the compaction with
-    one carry column from the right neighbour, and the commit of seam s to
-    vs. Returns (cb', cbs', crg', vs').
+    """One carve step of one image on the column shards of its mesh row
+    that this process holds (lists of [H, Wl] tensors, a local shard each;
+    cbs / crg None when absent), row: the row's exchanges. Energy with a
+    one-column halo, the blocked DP, the backtrack of the gathered map, the
+    compaction with one carry column from the right neighbour, and the
+    commit of seam s to vs. Returns (cb', cbs', crg', vs').
 
     The commit: a visible column's global rank among its row's visible
     columns is its rank within its shard plus the exclusive prefix of the
     shards' counts, so seam s lands where that rank equals seam[y]."""
-    n = len(cb)
     Wl = cb[0].shape[-1]
     glane = [c * Wl + torch.arange(Wl, dtype=torch.int32, device=dv)[None, :]
-             for c, dv in enumerate(devices)]
+             for c, dv in zip(row.cols, row.devices)]
+    local = range(len(cb))
 
-    e = _local_energy(cb, w, nrg, glane, devices)
+    e = _local_energy(cb, w, nrg, glane, row)
     if cbs is not None:
-        e = [torch.where(glane[c] < w, e[c] + cbs[c], INF) for c in range(n)]
+        e = [torch.where(glane[i] < w, e[i] + cbs[i], INF) for i in local]
     M, bp = _dp_local_blocked(e, crg, pref_left, delta_x, crg is not None,
-                              H, R, devices)
-    seam = _backtrack_gathered(M, bp, pref_left, devices[0])
+                              H, R, row.devices, row)
+    seam = dp_cuda.backtrack(row.gather(M), row.gather(bp, dim=1), pref_left)
+    seams = row.spread([seam] * row.n)
 
     # compaction: a left shift of columns >= seam, the right neighbour's
-    # first column (one packed copy of every plane's) moving in at the end
+    # first column (one packed message of every plane's) moving in at the
+    # end
     planes = [cb] + [p for p in (cbs, crg) if p is not None]
-    packed = [torch.stack([p[c][:, 0] for p in planes]) for c in range(n)]
-    out = [[None] * n for _ in planes]
-    counts, seams = [], []
-    for c in range(n):
-        seam_c = seam if c == 0 else _send("gather", seam, devices[c])
-        seams.append(seam_c)
-        recv = (_send("halo", packed[c + 1], devices[c]) if c < n - 1
-                else torch.zeros_like(packed[c]))
-        ge = glane[c] >= seam_c[:, None]
-        keep = glane[c] < w - 1
-        for i, p in enumerate(planes):
-            shifted = torch.cat([p[c][:, 1:], recv[i][:, None]], dim=1)
-            out[i][c] = torch.where(keep, torch.where(ge, shifted, p[c]), 0)
-        visible = (vs[c] == 0) & (glane[c] < ref_w)
+    _fl, carry = row.shift(
+        "carry", lambda i: torch.stack([p[i][:, 0] for p in planes]), None,
+        (len(planes), H), cb[0].dtype)
+    out = [[None] * len(cb) for _ in planes]
+    counts = []
+    for i in local:
+        recv = (carry[i] if carry[i] is not None
+                else torch.zeros((len(planes), H), dtype=cb[i].dtype,
+                                 device=cb[i].device))
+        ge = glane[i] >= seams[i][:, None]
+        keep = glane[i] < w - 1
+        for j, p in enumerate(planes):
+            shifted = torch.cat([p[i][:, 1:], recv[j][:, None]], dim=1)
+            out[j][i] = torch.where(keep, torch.where(ge, shifted, p[i]), 0)
+        visible = (vs[i] == 0) & (glane[i] < ref_w)
         counts.append(visible.to(torch.int32).sum(dim=1))
 
     # commit: the exclusive prefix of the shards' visible counts per row
-    allc = torch.stack([counts[0]] + [_send("gather", k, devices[0])
-                                      for k in counts[1:]])     # [n, H]
-    prefix = torch.cumsum(allc, dim=0) - allc
+    allc = row.gather([k[None] for k in counts])              # [n, H]
+    prefix = row.spread(list((torch.cumsum(allc, dim=0) - allc).unbind(0)))
     vs_out = []
-    for c in range(n):
-        visible = (vs[c] == 0) & (glane[c] < ref_w)
+    for i in local:
+        visible = (vs[i] == 0) & (glane[i] < ref_w)
         vis = visible.to(torch.int32)
-        pre = prefix[c] if c == 0 else _send("gather", prefix[c], devices[c])
-        rank = torch.cumsum(vis, dim=1) - vis + pre[:, None]
-        hit = visible & (rank == seams[c][:, None])
-        vs_out.append(torch.where(hit, s, vs[c]))
+        rank = torch.cumsum(vis, dim=1) - vis + prefix[i][:, None]
+        hit = visible & (rank == seams[i][:, None])
+        vs_out.append(torch.where(hit, s, vs[i]))
     it = iter(out[1:])
     cbs2 = next(it) if cbs is not None else None
     crg2 = next(it) if crg is not None else None
@@ -480,25 +685,27 @@ def extend_map_sharded(mesh: Mesh, cfg: EngineConfig, sst: ShardedState,
                        k) -> ShardedState:
     """The column-sharded resize: k[b] further seams (scalar or [B]) into
     every image of a state placed by shard_batch_state(mesh, cols=True).
-    Each seam step runs on the image's column shards (_carve_seam_local);
+    Each seam step runs on the image's column shards (_carve_seam_local),
+    on a mesh over processes each process running its own shard's part;
     the visibility map equals the unsharded resize's bit for bit."""
     H, Wb = cfg.H, cfg.Wb
     n_cols = mesh.shape["cols"]
     R = _block_rows(H, cfg.delta_x, Wb // n_cols)
-    B = sum(row[0].vs.shape[0] for row in sst.shards)
-    k = np.broadcast_to(np.asarray(k, np.int64), (B,))
-    rows, start = [], 0
-    for d, row in enumerate(sst.shards):
-        devs = mesh.devices[d]
-        Bd = row[0].vs.shape[0]
-        kd = k[start:start + Bd]
-        start += Bd
-        ref_w, depth = row[0].ref_w, row[0].depth.copy()
+    d0 = mesh.local_rows[0]
+    Bd = next(s for s in sst.shards[d0] if s is not None).vs.shape[0]
+    k = np.broadcast_to(np.asarray(k, np.int64), (Bd * mesh.shape["data"],))
+    rows = list(sst.shards)
+    for d in mesh.local_rows:
+        row = _row(mesh, d)
+        held = [sst.shards[d][c] for c in row.cols]
+        kd = k[d * Bd:(d + 1) * Bd]
+        ref_w, depth = held[0].ref_w, held[0].depth.copy()
+        row.check_steps(np.concatenate([kd, depth, ref_w]))
 
         def split(name):
-            if getattr(row[0], name) is None:
+            if getattr(held[0], name) is None:
                 return [None] * Bd
-            return [[getattr(s, name)[i] for s in row] for i in range(Bd)]
+            return [[getattr(s, name)[i] for s in held] for i in range(Bd)]
 
         cb, cbs, crg, vs = (split(f) for f in ("cur_b", "cur_bias",
                                                "cur_rig", "vs"))
@@ -510,21 +717,22 @@ def extend_map_sharded(mesh: Mesh, cfg: EngineConfig, sst: ShardedState,
                 cb[i], cbs[i], crg[i], vs[i] = _carve_seam_local(
                     cb[i], cbs[i], crg[i], vs[i], int(ref_w[i] - depth[i]),
                     s, eng.pref_is_left(s, cfg.side_switch_freq),
-                    int(ref_w[i]), devices=devs, H=H, delta_x=cfg.delta_x,
+                    int(ref_w[i]), row=row, H=H, delta_x=cfg.delta_x,
                     nrg=cfg.nrg, R=R)
                 depth[i] += 1
 
-        def join(parts, c, old):
+        def join(parts, i, old):
             if old is None:
                 return None
-            return torch.stack([parts[i][c] for i in range(Bd)])
+            return torch.stack([parts[b][i] for b in range(Bd)])
 
-        rows.append(tuple(
-            s._replace(cur_b=join(cb, c, s.cur_b),
-                       cur_bias=join(cbs, c, s.cur_bias),
-                       cur_rig=join(crg, c, s.cur_rig),
-                       vs=join(vs, c, s.vs), depth=depth.copy())
-            for c, s in enumerate(row)))
+        new = list(sst.shards[d])
+        for i, (c, st) in enumerate(zip(row.cols, held)):
+            new[c] = st._replace(cur_b=join(cb, i, st.cur_b),
+                                 cur_bias=join(cbs, i, st.cur_bias),
+                                 cur_rig=join(crg, i, st.cur_rig),
+                                 vs=join(vs, i, st.vs), depth=depth.copy())
+        rows[d] = tuple(new)
     return sst._replace(shards=tuple(rows))
 
 

@@ -2,7 +2,7 @@
 ``scripts/scaling.py``.
 
     python -m lqr_tpu_torch.scaling [--devices cuda|cpu] [--quick]
-        [--procs 2]
+        [--procs 2] [--cols 1]
 
 Prints one JSON line per measurement and exits 1 when a line is not
 bit-exact, a counter reads other than the design says, or a worker fails:
@@ -17,11 +17,19 @@ unlike ``bench``, this program is a check.
   image-seams.
 - ``multiprocess_gloo_resize``: --procs worker processes (``python -m
   lqr_tpu_torch.scaling --worker RANK WORLD INIT``) in one gloo group,
-  initialized through a file in a fresh temporary directory. Each carves
-  its 'data' row of the same batch on its device (on a one-card machine
-  every worker on cuda:0), after a barrier; the rows are all-gathered and
-  rank 0 holds the vs maps against a one-process ``BatchCarver``. A worker
-  that fails, or is not done within WORKER_TIMEOUT_S, fails the line.
+  initialized through a file in a fresh temporary directory, on a process
+  mesh of --procs / --cols 'data' rows of --cols column shards, a shard a
+  process. Each carves its shard of the same batch on its device (on a
+  one-card machine every worker on cuda:0), after a barrier; the shards are
+  all-gathered and rank 0 holds the vs maps against a one-process
+  ``BatchCarver``, every worker's gathered map the same. The batch: with
+  one column a 'data' row, the cfg4 wave; with a 'cols' axis of one row,
+  the column line's image; of several rows, a row of COL_BATCH cfg1-size
+  images each, with bias and rigidity. With a 'cols' axis the line holds
+  the halo messages the workers of a row send a seam against the column
+  line's prediction, and gives the time each spent in its messages. A
+  worker that fails, or is not done within WORKER_TIMEOUT_S, fails the
+  line.
 - ``column_sharded_multiseam_resize``: ``BatchCarver`` on SHARDS column
   shards of the device (``extend_map_sharded``): ms/seam, the launches a
   seam, the DP's block rows R and the halo exchanges a seam against the
@@ -31,12 +39,13 @@ unlike ``bench``, this program is a check.
 
 Sizes: the data lines carve one cfg4 wave (256 images of 1024x1024, 256
 seams; 128 images a row or a process), the column line 2048x2048, 100
-seams; --quick takes small ones for the CPU. Parts 1 and 2 of
-scripts/scaling.py (the collectives of the compiled HLO, XLA's cost model)
-have no PyTorch counterpart; the exchange counter stands for the audit.
-Rows or processes that share one card timeshare it: their walls are no
-scaling efficiency. The device is the card unless ``--devices cpu`` is
-given; without CUDA the program exits 1.
+seams, and so does a process mesh of one row; one of several rows carves
+512x384 images (cfg1's), 100 seams; --quick takes small ones for the
+CPU. Parts 1 and 2 of scripts/scaling.py (the collectives of the compiled
+HLO, XLA's cost model) have no PyTorch counterpart; the exchange counter
+stands for the audit. Rows or processes that share one card timeshare it:
+their walls are no scaling efficiency. The device is the card unless
+``--devices cpu`` is given; without CUDA the program exits 1.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import datetime
+import hashlib
 import json
 import os
 import pathlib
@@ -68,10 +78,12 @@ from .parallel.sharding import make_mesh, make_process_mesh
 ROWS = 2          # 'data' rows of the one-process mesh
 SHARDS = 4        # column shards of the column line
 WORKER_TIMEOUT_S = 300
+COL_BATCH = 2     # images a row of a process mesh of several column rows
+COL_RIGIDITY = 100.0
 FULL = {"images": 256, "size": 1024, "seams": 256, "col_hw": (2048, 2048),
-        "col_seams": 100}
+        "col_seams": 100, "cfg1_hw": (384, 512), "cfg1_seams": 100}
 QUICK = {"images": 4, "size": 64, "seams": 8, "col_hw": (40, 128),
-         "col_seams": 6}
+         "col_seams": 6, "cfg1_hw": (24, 128), "cfg1_seams": 4}
 WALL_NOTE = ("the rows (or processes) share one device and timeshare it: "
              "these walls are not a scaling efficiency")
 
@@ -135,41 +147,71 @@ def data_parallel_scaling(device, sz: dict) -> dict:
         "ok": exact and moved == 0, "wall_note": WALL_NOTE}
 
 
+def worker_batch(sz: dict, data: int, cols: int):
+    """The batch of a process mesh of ``data`` rows of ``cols`` column
+    shards: (images, BatchCarver keywords, seams)."""
+    if cols == 1:
+        return make_wave(0, sz["images"], sz["size"]), {}, sz["seams"]
+    if data == 1:
+        h, w = sz["col_hw"]
+        return [make_test_image(max(h, w))[:h, :w]], {}, sz["col_seams"]
+    h, w = sz["cfg1_hw"]
+    rng = np.random.default_rng(1)
+    base = make_test_image(max(h, w))[:h, :w]
+    n = COL_BATCH * data
+    images = [np.roll(base, 9 * i, axis=1) for i in range(n)]
+    biases = [rng.normal(0.0, 40.0, (h, w)).astype(np.float32)
+              for _ in range(n)]
+    return images, {"biases": biases, "rigidity": COL_RIGIDITY}, \
+        sz["cfg1_seams"]
+
+
 def run_worker(rank: int, world: int, init: str, kind: str,
-               quick: bool) -> int:
-    """One process of multiprocess_gloo_resize: its row of the batch on its
-    device; prints one JSON line."""
+               quick: bool, cols: int = 1) -> int:
+    """One process of multiprocess_gloo_resize: its shard of the batch on
+    its device; prints one JSON line."""
     sz = QUICK if quick else FULL
     dist.init_process_group(
         "gloo", init_method=init, rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=WORKER_TIMEOUT_S))
     try:
-        mesh = make_process_mesh(device="cpu" if kind == "cpu" else None)
-        dev = mesh.devices[mesh.local_rows[0]][0]
-        wave = make_wave(0, sz["images"], sz["size"])
-        BatchCarver(wave, mesh=mesh).carve(sz["seams"])      # warm-up
-        bc = BatchCarver(wave, mesh=mesh)
+        mesh = make_process_mesh(data=world // cols,
+                                 device="cpu" if kind == "cpu" else None)
+        d, c = mesh.local_shards[0]
+        dev = mesh.devices[d][c]
+        images, kw, seams = worker_batch(sz, mesh.shape["data"], cols)
+        BatchCarver(images, mesh=mesh, **kw).carve(seams)    # warm-up
+        bc = BatchCarver(images, mesh=mesh, **kw)
         sync(dev)
         dist.barrier()
         before = dict(sharding.EXCHANGES)
+        secs = dict(sharding.EXCHANGE_SECONDS)
         t0 = time.perf_counter()
-        _, launches = launches_of(lambda: bc.carve(sz["seams"]))
+        _, launches = launches_of(lambda: bc.carve(seams))
         sync(dev)
         wall = time.perf_counter() - t0
-        moved = sum(_exchanges_since(before).values())
+        moved = _exchanges_since(before)
         t0 = time.perf_counter()
         st = bc.state
         sync(dev)
-        Bd = len(wave) // world
-        d = mesh.local_rows[0]
-        out = {"rank": rank, "device": str(dev), "images": Bd,
+        Bd = len(images) // mesh.shape["data"]
+        cfg = bc.cfg
+        out = {"rank": rank, "device": str(dev), "shard": [d, c],
+               "images": Bd, "seams": seams, "H": cfg.H,
+               "block_rows": sharding._block_rows(cfg.H, cfg.delta_x,
+                                                  cfg.Wb // cols),
                "img_seams": int(st.depth[d * Bd:(d + 1) * Bd].sum()),
                "wall_s": wall, "launches": launches,
-               "exchanges_in_carve_loop": moved,
-               "gather_s": time.perf_counter() - t0}
+               "exchanges_in_carve_loop": sum(moved.values()),
+               "exchanges": moved,
+               "exchange_s": {k: v - secs[k] for k, v in
+                              sharding.EXCHANGE_SECONDS.items()},
+               "gather_s": time.perf_counter() - t0,
+               "vs_sha256": hashlib.sha256(
+                   st.vs.cpu().numpy().tobytes()).hexdigest()}
         if rank == 0:
-            solo = BatchCarver(wave, device=dev)
-            solo.carve(sz["seams"])
+            solo = BatchCarver(images, device=dev, **kw)
+            solo.carve(seams)
             out["bit_exact"] = _same_map(st, solo.state)
         print(json.dumps(out), flush=True)
     finally:
@@ -199,8 +241,13 @@ def _wait(procs, timeout: float) -> None:
         raise RuntimeError(f"a worker was not done within {timeout} s")
 
 
-def multiprocess_gloo_resize(kind: str, quick: bool, procs: int) -> dict:
-    """The 'data' axis across ``procs`` processes (make_process_mesh)."""
+def multiprocess_gloo_resize(kind: str, quick: bool, procs: int,
+                             cols: int = 1) -> dict:
+    """A process mesh of ``procs`` processes (make_process_mesh): procs /
+    cols 'data' rows of ``cols`` column shards."""
+    if cols < 1 or procs % cols != 0:
+        raise LqrConfigError(f"{procs} processes cannot form rows of {cols} "
+                             f"column shards")
     pkg_root = str(pathlib.Path(__file__).resolve().parent.parent)
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -217,8 +264,8 @@ def multiprocess_gloo_resize(kind: str, quick: bool, procs: int) -> dict:
         t0 = time.perf_counter()
         workers = [subprocess.Popen(
             [sys.executable, "-m", "lqr_tpu_torch.scaling", "--worker",
-             str(i), str(procs), init, "--devices", kind]
-            + (["--quick"] if quick else []),
+             str(i), str(procs), init, "--devices", kind, "--cols",
+             str(cols)] + (["--quick"] if quick else []),
             stdout=out, stderr=err, env=env) for i, (out, err) in
             enumerate(logs)]
         try:
@@ -234,16 +281,37 @@ def multiprocess_gloo_resize(kind: str, quick: bool, procs: int) -> dict:
         for out, _err in logs:
             out.seek(0)
             lines.append(json.loads(out.read().strip().splitlines()[-1]))
-    exact = lines[0].get("bit_exact") is True
-    return {
+    exact = (lines[0].get("bit_exact") is True
+             and len({w["vs_sha256"] for w in lines}) == 1)
+    line = {
         "metric": "multiprocess_gloo_resize", "value": exact,
         "unit": f"vs_map_bit_equal_across_{procs}_processes",
-        "vs_baseline": None, "processes": procs, "backend": "gloo",
+        "vs_baseline": None, "processes": procs,
+        "mesh": {"data": procs // cols, "cols": cols}, "backend": "gloo",
         "init_method": "file", "workers": lines, "wall_s": wall,
-        "bit_exact": exact,
-        "ok": exact and all(w["exchanges_in_carve_loop"] == 0
-                            for w in lines),
-        "wall_note": WALL_NOTE}
+        "bit_exact": exact, "wall_note": WALL_NOTE}
+    if cols == 1:
+        line["ok"] = exact and all(w["exchanges_in_carve_loop"] == 0
+                                   for w in lines)
+        return line
+    # a seam step is one seam of one image; a row's workers each take
+    # every step of the row's images
+    w0 = lines[0]
+    steps = w0["images"] * w0["seams"]
+    halo = (sum(w["exchanges"]["halo"] for w in lines)
+            / (steps * (procs // cols)))
+    predicted = (cols - 1) * (2 * (w0["H"] // w0["block_rows"]) + 3)
+    line.update({
+        "block_rows": w0["block_rows"],
+        "ms_per_seam": max(w["wall_s"] for w in lines) / steps * 1e3,
+        "exchange_ms_per_seam": [
+            sum(w["exchange_s"].values()) / steps * 1e3 for w in lines],
+        "launches_per_seam": [{k: v / steps for k, v in w["launches"].items()}
+                              for w in lines],
+        "halo_messages_per_seam": halo,
+        "halo_messages_predicted": predicted,
+        "ok": exact and halo == predicted})
+    return line
 
 
 def column_sharded_multiseam_resize(device, sz: dict) -> dict:
@@ -285,13 +353,15 @@ def main(argv=None) -> int:
                     help="small sizes, for the CPU")
     ap.add_argument("--procs", type=int, default=2,
                     help="processes of multiprocess_gloo_resize")
+    ap.add_argument("--cols", type=int, default=1,
+                    help="column shards of each row of its process mesh")
     ap.add_argument("--worker", nargs=3, metavar=("RANK", "WORLD", "INIT"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
         rank, world, init = args.worker
         return run_worker(int(rank), int(world), init, args.devices,
-                          args.quick)
+                          args.quick, args.cols)
     try:
         device = resolve_device(args.devices)
     except LqrConfigError as e:
@@ -308,7 +378,7 @@ def main(argv=None) -> int:
              lambda: data_parallel_scaling(device, sz)),
             ("multiprocess_gloo_resize",
              lambda: multiprocess_gloo_resize(args.devices, args.quick,
-                                              args.procs)),
+                                              args.procs, args.cols)),
             ("column_sharded_multiseam_resize",
              lambda: column_sharded_multiseam_resize(device, sz))):
         try:

@@ -40,7 +40,7 @@ _WORKER = """
 import datetime, json, sys
 import numpy as np, torch, torch.distributed as dist
 torch.set_num_threads(1)
-from lqr_tpu_torch import LqrConfigError, LqrImageError
+from lqr_tpu_torch import LqrImageError
 from lqr_tpu_torch.parallel import BatchCarver, make_mesh, make_process_mesh
 from lqr_tpu_torch.parallel import sharding
 
@@ -57,10 +57,11 @@ biases = [inp[f"bias{i}"] if f"bias{i}" in inp.files else None
 aux = [[inp[f"aux{i}"]] for i in range(n)]
 widths = list(inp["widths"])
 out = {}
-try:
-    make_process_mesh(data=1, device="cpu")
-except LqrConfigError as e:
-    out["cols_refused"] = str(e)
+cols = make_process_mesh(data=1, device="cpu")
+out["cols_mesh"] = {"shape": cols.shape,
+                    "local_shards": [list(x) for x in cols.local_shards],
+                    "col_sharded": BatchCarver([imgs[0]],
+                                               mesh=cols).col_sharded}
 mesh = make_process_mesh(device="cpu")
 out["local_rows"] = list(mesh.local_rows)
 try:
@@ -184,8 +185,10 @@ def test_two_processes_equal_one_process_and_jax(two_processes):
 def test_process_mesh_rows_and_refusals(two_processes):
     for rank, (_got, checks) in enumerate(two_processes):
         assert checks["local_rows"] == [rank]
-        assert "'cols' axis across processes" in checks["cols_refused"]
-        assert "two or more" in checks["cols_refused"]
+        # data=1: one row of two column shards, a process each
+        assert checks["cols_mesh"] == {"shape": {"data": 1, "cols": 2},
+                                       "local_shards": [[0, rank]],
+                                       "col_sharded": True}
         assert checks["indivisible"] == checks["indivisible_one_process"]
         assert "cannot shard evenly over 2 'data'" in checks["indivisible"]
 
@@ -256,6 +259,27 @@ def test_scaling_program_quick():
                and w["img_seams"] == 2 * 8 for w in multi["workers"])
     assert cols["halo_exchanges_per_seam"] == cols["halo_exchanges_predicted"]
     assert cols["dp_route"] == "blocks"
+
+
+def test_scaling_program_process_cols():
+    """--cols 2 on 4 processes: a 2 x 2 process mesh carving its masked
+    batch of cfg1-like images, every worker's gathered map bit-equal to one
+    process's, the halo messages of a row's seam step as predicted."""
+    rc, out, err = _run([sys.executable, "-m", "lqr_tpu_torch.scaling",
+                         "--devices", "cpu", "--quick", "--procs", "4",
+                         "--cols", "2"])
+    assert rc == 0, err[-3000:]
+    multi = {x["metric"]: x for x in _lines(out)}["multiprocess_gloo_resize"]
+    assert multi["ok"] is True and multi["bit_exact"] is True, multi
+    assert multi["mesh"] == {"data": 2, "cols": 2}
+    workers = multi["workers"]
+    assert [w["shard"] for w in workers] == [[0, 0], [0, 1], [1, 0], [1, 1]]
+    assert len({w["vs_sha256"] for w in workers}) == 1
+    assert all(w["images"] == 2 and w["img_seams"] == 2 * 4
+               and w["launches"] == {} for w in workers)
+    assert multi["block_rows"] == 8          # H 24 over shards of 64 columns
+    assert (multi["halo_messages_per_seam"]
+            == multi["halo_messages_predicted"] == 2 * 24 // 8 + 3)
 
 
 def test_scaling_program_fails_with_a_worker():
