@@ -142,25 +142,33 @@ Phases, one line each (any failure exits non-zero):
              BatchCarver on a one-process mesh of two 'data' rows of the
              card against no mesh (no exchange in the carve, two batched
              resident launches a row); the same wave over two processes
-             that share the card (make_process_mesh, a gloo group, 128
-             images each, the vs maps all-gathered and held against one
-             process); and 2048x2048, 100 seams on 4 column shards of the
-             card (one dp_sharded and one backtrack launch a seam, the
-             halo exchanges the design predicts). A non-zero exit, a line
-             that is not bit-exact or other launches fail.
+             that share the card (make_process_mesh in a gloo group, its
+             carrier the mailbox of one host, 128 images each, the vs maps
+             gathered device to device and held against one process); and
+             2048x2048, 100 seams on 4 column shards of the card (one
+             dp_sharded and one backtrack launch a seam, the halo
+             exchanges the design predicts). A non-zero exit, a line that
+             is not bit-exact or other launches fail. Then the two-process
+             wave again under gloo (called here): its map equal to the
+             mailbox's, and the 'data' gather's time under both carriers.
 10. cols   — the 'cols' axis across processes that share the card
              (lqr_tpu_torch.scaling's multiprocess_gloo_resize, called here,
-             its workers on a make_process_mesh over gloo): 2048x2048, 100
-             seams on one row of 2 column shards in 2 processes, then a
-             2 x 2 mesh on 4 processes carving 4 images of 512x384 (cfg1's
-             size) with bias and rigidity, 100 seams. Each worker's
-             gathered map must equal the others' and rank 0's one-process
-             BatchCarver's; each worker launches dp_block H / R times and
-             the backtrack once a seam step (its own launch counts, set to 0
-             around its carve); the halo messages a row sends a seam must be
-             the design's (n_cols - 1)(2H/R + 3). The ms a seam, each
-             worker's ms in its messages and its launches are printed with
-             the card's name and power limit.
+             its workers on a make_process_mesh in a gloo group), each mesh
+             under both carriers, gloo (host copies over the group) and the
+             mailbox (CUDA IPC rings ordered by stream memory operations):
+             2048x2048, 100 seams on one row of 2 column shards in 2
+             processes, then a 2 x 2 mesh on 4 processes carving 4 images
+             of 512x384 (cfg1's size) with bias and rigidity, 100 seams.
+             Each worker's gathered map must equal the others', rank 0's
+             one-process BatchCarver's and the other carrier's; each
+             worker launches dp_block H / R times and the backtrack once a
+             seam step (its own launch counts, set to 0 around its carve);
+             the halo messages a row sends a seam must be the design's
+             (n_cols - 1)(2H/R + 3); the mailbox must make no host copy and
+             send no message of data over the group in the carve, gloo
+             some. The ms a seam, each worker's ms in its messages (under
+             the mailbox the time to enqueue them), its host copies and
+             its launches are printed with the card's name and power limit.
 
 The card's name and power limit (nvidia-smi) stand on a line of their own;
 the line before the last is a JSON object with one entry per kernel: its
@@ -2437,10 +2445,13 @@ def check_scaling_line(line) -> None:
                          _only(dp_sharded=1, backtrack=1))
 
 
-def run_scaling() -> None:
+def run_scaling(gpu) -> None:
     """Phase 9: python -m lqr_tpu_torch.scaling on the card, in a process
-    of its own (its workers share the card); every line checked."""
+    of its own (its workers share the card, their mesh's own carrier: the
+    mailbox); every line checked. Then the same 'data' mesh under gloo,
+    called here: the wave's gather timed under both carriers."""
     import torch
+    from lqr_tpu_torch import scaling
     torch.cuda.empty_cache()        # the card's memory for its processes
     t0 = time.perf_counter()
     proc = subprocess.run(
@@ -2457,8 +2468,24 @@ def run_scaling() -> None:
                              f"{proc.stderr[-3000:]}")
     for line in lines:
         check_scaling_line(line)
+    if lines[1]["transport"] != "mailbox":
+        raise AssertionError(f"the workers on one host took "
+                             f"{lines[1]['transport']}, not the mailbox")
     say("scaling", f"three lines bit-exact, their counters and launches as "
         f"expected: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gloo = scaling.multiprocess_gloo_resize("cuda", False, 2, 1, "gloo")
+    say("scaling", json.dumps(gloo))
+    if gloo["transport"] != "gloo":
+        raise AssertionError(f"the gloo line ran {gloo['transport']}")
+    check_scaling_line(gloo)
+    if gloo["workers"][0]["vs_sha256"] != lines[1]["workers"][0]["vs_sha256"]:
+        raise AssertionError("the wave's map differs between the carriers")
+    say("scaling", f"the cfg4 wave's 'data' gather on 2 processes: mailbox "
+        f"{lines[1]['gather_s']:.4f} s (again {lines[1]['gather_again_s']:.4f}"
+        f" s), gloo {gloo['gather_s']:.4f} s (again "
+        f"{gloo['gather_again_s']:.4f} s); the maps equal; "
+        f"{time.perf_counter() - t0:.1f} s for the gloo line; {gpu}")
 
 
 # Phase 10: (processes, column shards a row) of each process mesh
@@ -2467,22 +2494,38 @@ PROCESS_COLS = ((2, 2), (4, 2))
 
 def run_process_cols(gpu) -> dict:
     """Phase 10: the 'cols' axis across processes that share the card, each
-    mesh carved by lqr_tpu_torch.scaling's workers; every line checked.
+    mesh carved by lqr_tpu_torch.scaling's workers under each carrier;
+    every line checked, each carrier's map held against the other's.
     Returns the workers' launches of dp_block and the backtrack, summed."""
     import torch
     from lqr_tpu_torch import scaling
+    from lqr_tpu_torch.parallel.sharding import TRANSPORTS
     torch.cuda.empty_cache()        # the card's memory for its processes
     total = {"dp_block": 0, "backtrack": 0}
-    for procs, cols in PROCESS_COLS:
-        label = f"{procs} processes as {procs // cols} x {cols}"
+    maps = {}                       # each mesh's map under the first carrier
+    for (procs, cols), transport in ((m, t) for m in PROCESS_COLS
+                                     for t in TRANSPORTS):
+        label = f"{procs} processes as {procs // cols} x {cols}, {transport}"
         t0 = time.perf_counter()
-        line = scaling.multiprocess_gloo_resize("cuda", False, procs, cols)
+        line = scaling.multiprocess_gloo_resize("cuda", False, procs, cols,
+                                                transport)
         say("cols", json.dumps(line))
-        if line["ok"] is not True or line["bit_exact"] is not True:
+        if line["ok"] is not True or line["bit_exact"] is not True \
+                or line["transport"] != transport:
             raise AssertionError(f"{label}: not ok: halo "
                                  f"{line['halo_messages_per_seam']} against "
                                  f"{line['halo_messages_predicted']}, "
-                                 f"bit_exact {line['bit_exact']}")
+                                 f"bit_exact {line['bit_exact']}, carrier "
+                                 f"{line['transport']}")
+        copies = line["host_copies_per_seam"]
+        sent = line["gloo_messages_per_seam"]
+        if (transport == "mailbox") != (copies == sent == 0):
+            raise AssertionError(f"{label}: {copies} host copies and {sent} "
+                                 f"gloo messages a seam step")
+        sha = {w["vs_sha256"] for w in line["workers"]}
+        if maps.setdefault((procs, cols), sha) != sha:
+            raise AssertionError(f"{label}: the map differs from the other "
+                                 f"carrier's")
         for w in line["workers"]:
             steps = w["images"] * w["seams"]
             if w["device"] != "cuda:0" or w["img_seams"] != steps:
@@ -2505,9 +2548,11 @@ def run_process_cols(gpu) -> dict:
             f"step by rank; launches a step "
             f"{line['launches_per_seam'][0]} in every worker; halo messages "
             f"a step {line['halo_messages_per_seam']} (predicted "
-            f"{line['halo_messages_predicted']}); every worker's map "
-            f"bit-equal to one process's; {time.perf_counter() - t0:.1f} s "
-            f"with the workers' start; {gpu}")
+            f"{line['halo_messages_predicted']}); host copies "
+            f"{copies} and gloo messages {sent} a step; every worker's map "
+            f"bit-equal to one process's and to the other carrier's; "
+            f"{time.perf_counter() - t0:.1f} s with the workers' start; "
+            f"{gpu}")
     return total
 
 
@@ -2604,7 +2649,7 @@ def main() -> int:
         run_interactive(device, vs_main, pathlib.Path(tmp))
         time_interactive(device, pathlib.Path(tmp), gpu)
     run_entry_points(device)
-    run_scaling()
+    run_scaling(gpu)
     for kname, count in run_process_cols(gpu).items():
         launches[kname] += count
 

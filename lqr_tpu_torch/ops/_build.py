@@ -25,7 +25,7 @@ SO = BUILD / "liblqr_kernels.so"
 SOURCES = (CSRC / "dp_forward.cu", CSRC / "backtrack.cu",
            CSRC / "carve_resident.cu", CSRC / "dp_block.cu",
            CSRC / "carve_step.cu", CSRC / "dp_sharded.cu",
-           CSRC / "dp_energy_forward.cu")
+           CSRC / "dp_energy_forward.cu", CSRC / "mailbox.cu")
 HEADERS = (CSRC / "seam_dp.cuh", CSRC / "energy.cuh",
            CSRC / "strip_dp.cuh", CSRC / "strip_sweep.inc",
            CSRC / "chase.cuh")
@@ -137,6 +137,15 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lqr_backtrack_compact.restype = i
     lib.lqr_backtrack_compact.argtypes = ([p] * 5 + [i] * 4 + [p] * 5
                                           + [ctypes.c_uint, p])
+    u64, size = ctypes.c_uint64, ctypes.c_size_t
+    for name, args in (("lqr_mb_alloc", [size, ctypes.POINTER(p)]),
+                       ("lqr_mb_free", [p]), ("lqr_mb_handle", [p, p]),
+                       ("lqr_mb_open", [p, ctypes.POINTER(p)]),
+                       ("lqr_mb_close", [p]), ("lqr_mb_write", [p, u64, p]),
+                       ("lqr_mb_wait", [p, u64, p]),
+                       ("lqr_mb_put", [p, u64, p, p, size, p, u64, p])):
+        getattr(lib, name).restype = i
+        getattr(lib, name).argtypes = args
     lib.lqr_cuda_error_string.restype = ctypes.c_char_p
     lib.lqr_cuda_error_string.argtypes = [i]
     return lib

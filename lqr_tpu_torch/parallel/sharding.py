@@ -10,26 +10,35 @@ Counterpart of ``lqr_tpu.parallel.sharding``:
   processes of a ``torch.distributed`` group, a shard a process in rank
   order, as a JAX mesh spans the devices of several processes: with one
   'data' row a process the rows exchange nothing; a row of several column
-  shards exchanges its halos and gathers between its processes.
+  shards exchanges its halos and gathers between its processes. A mesh over
+  processes has a carrier (``Mesh.transport``): "gloo", the group's
+  messages as host copies, or "mailbox" (``parallel/mailbox.py``), rings in
+  memory that the processes of one host map: CUDA IPC regions written and
+  waited on by the streams (no host copy, no host wait, no message over the
+  group), or shared host memory for CPU shards.
 - A sharded state (``ShardedState``) keeps each shard as its own tensors on
   its device; on a mesh over processes each process holds its own shard
   only. The exchanges of a mesh row's column shards go through one
-  interface (``_LocalRow``, ``_ProcessRow``): a shift of each shard's halo
-  to its left and right neighbours, a gather of the row's parts (the
-  frontier and backpointers for the backtrack, the row counts for the
-  commit) and the spread of what was computed from them back to the
-  shards. In one process it is copies to the neighbour's device and a
-  ``torch.cat`` onto the row's first device (but the DP's halos on one CUDA
-  device, below); across processes, point-to-point messages and
-  all-gathers over the row's gloo subgroup as host copies, every process
-  then computing the seam itself. ``gather_state`` of a mesh over
-  processes all-gathers the shards over the group, as host copies (the
-  group's backend must take CPU tensors: gloo).
+  interface (``_LocalRow``, ``_ProcessRow``, ``_MailboxRow``): a shift of
+  each shard's halo to its left and right neighbours, a gather of the
+  row's parts (the frontier and backpointers for the backtrack, the row
+  counts for the commit) and the spread of what was computed from them
+  back to the shards. In one process it is copies to the neighbour's
+  device and a ``torch.cat`` onto the row's first device (but the DP's
+  halos on one CUDA device, below); across processes, point-to-point
+  messages and all-gathers over the row's gloo subgroup as host copies,
+  or the same messages through the row's mailbox, every process then
+  computing the seam itself. ``gather_state`` of a mesh over processes all-gathers the
+  shards over the group (the group's backend must take CPU tensors: gloo),
+  or their planes through the group's mailbox.
 - ``EXCHANGES`` counts the messages between shards that this process
   sends, by kind: each is a copy where the two shards lie on distinct
   devices or processes, and a read in place where they share a device.
   ``EXCHANGE_SECONDS`` holds the wall time of the messages between
-  processes, host copies included.
+  processes, host copies included (under the mailbox carrier the time to
+  enqueue them). ``HOST_COPIES`` counts the copies between a CUDA device
+  and the host that carry them, ``GLOO_MESSAGES`` the messages of the
+  shards' data that went over the process group.
 
 Axis ``data`` splits the batch: each shard carves its images with the
 batched routes of ``parallel.batch``, with no exchange at all.
@@ -65,8 +74,10 @@ tensors and on its plain version on CPU tensors.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import functools
 import os
+import socket
 import time
 from typing import NamedTuple
 
@@ -83,11 +94,13 @@ from ..errors import LqrConfigError, LqrImageError
 from ..i18n import _
 from ..ops import dp_cuda
 from ..ops.dp_block import MAX_SHARDS, copy_halos, dp_blocked, dp_sharded
+from .mailbox import Mailbox
 
 __all__ = ["Mesh", "ShardedState", "make_mesh", "make_process_mesh",
            "shard_batch_state", "gather_state", "map_data_shards",
            "find_seam_sharded", "extend_map_sharded", "sharded_seam_step",
-           "dp_route", "EXCHANGES", "EXCHANGE_SECONDS"]
+           "dp_route", "EXCHANGES", "EXCHANGE_SECONDS", "HOST_COPIES",
+           "GLOO_MESSAGES", "TRANSPORTS"]
 
 INF = float("inf")
 
@@ -100,9 +113,33 @@ INF = float("inf")
 EXCHANGES = {"halo": 0, "gather": 0, "process": 0}
 # Seconds in the messages between the processes of a mesh row, by kind
 EXCHANGE_SECONDS = {"halo": 0.0, "gather": 0.0, "process": 0.0}
+# Copies between a CUDA device and the host that carry the messages, by kind
+HOST_COPIES = {"halo": 0, "gather": 0, "process": 0}
+# Messages of the shards' data over a mesh's process group, by kind (not
+# the row's check of its steps, nor a mailbox's handles)
+GLOO_MESSAGES = {"halo": 0, "gather": 0, "process": 0}
+# The carriers of a mesh over processes
+TRANSPORTS = ("gloo", "mailbox")
+# A row's mailbox channels: the halo tags, then the row's gathers
+_CHANNELS = ("energy", "dp", "carry", "gather")
 # gloo tags of the halos between a row's processes: no message of one
 # kind can meet the receive of another
 _TAGS = {"energy": 1, "dp": 2, "carry": 3}
+
+
+def _to_host(kind: str, t: torch.Tensor) -> torch.Tensor:
+    """t on the host for a gloo message, a counted copy if it is not."""
+    if t.device.type != "cpu":
+        HOST_COPIES[kind] += 1
+    return t.contiguous().cpu()
+
+
+def _from_host(kind: str, t: torch.Tensor, device) -> torch.Tensor:
+    """A received host tensor on ``device``, a counted copy if that is not
+    the host."""
+    if torch.device(device).type != "cpu":
+        HOST_COPIES[kind] += 1
+    return t.to(device)
 
 
 def _send(kind: str, t: torch.Tensor, device) -> torch.Tensor:
@@ -118,12 +155,18 @@ class Mesh:
     group, ``ranks``, the group rank of the process that holds each shard
     (row-major: shard (d, c) at d * cols + c), and with a 'cols' axis
     ``row_groups``, a gloo subgroup of each row's processes; a device of
-    another process's shard is that process's device."""
+    another process's shard is that process's device. ``transport``: its
+    carrier, "gloo" or "mailbox"; under "mailbox", ``mailboxes[d]`` is row
+    d's (None for a row this process holds no shard of, and without a
+    'cols' axis) and ``mailbox`` the group's, for gather_state."""
 
     devices: tuple
     group: object = None
     ranks: tuple | None = None
     row_groups: tuple | None = None
+    transport: str | None = None
+    mailboxes: tuple | None = None
+    mailbox: object = None
 
     @property
     def shape(self) -> dict:
@@ -195,8 +238,18 @@ def _takes_cpu(group) -> bool:
     return backend != "nccl"
 
 
+def _timeout_s(group) -> float:
+    """The seconds a collective of the group may take: its gloo backend's
+    timeout (torch's default where the backend does not say)."""
+    try:
+        t = group._get_backend(torch.device("cpu")).options._timeout
+    except (AttributeError, RuntimeError):
+        t = dist.default_pg_timeout
+    return t.total_seconds()
+
+
 def make_process_mesh(data: int | None = None, device=None,
-                      group=None) -> Mesh:
+                      group=None, transport: str | None = None) -> Mesh:
     """A mesh whose shards lie in the processes of an initialized
     ``torch.distributed`` group (``group``, else the default group), a
     shard a process: ``data`` rows (the group's size n by default, one row a
@@ -209,9 +262,23 @@ def make_process_mesh(data: int | None = None, device=None,
     row's processes (``dist.new_group``, which every process of the default
     group enters, for every row in the same order).
 
-    The shards exchange host copies (``gather_state``, the column path), so
-    the group's backend must carry CPU tensors (gloo); an NCCL-only group
-    raises LqrConfigError, as does a ``data`` that does not divide n."""
+    transport: the carrier of the shards' messages (``gather_state``, the
+    column path). "gloo": host copies over the group, so the group's
+    backend must carry CPU tensors (gloo), as it must for the carrier's
+    handles and checks either way; "mailbox": the rings of
+    ``parallel/mailbox.py`` (a region of each process's device that the
+    others map: CUDA IPC on the card, shared memory for CPU shards), which
+    needs every process of the group on this host and shards of one device
+    type, and its peers' memory mapped (building it maps them); None (the
+    default): "mailbox" where every process of the group is on one host
+    and its shards are of one device type, else "gloo". An NCCL-only group,
+    a ``data`` that does not divide n, an unknown transport and a
+    "mailbox" that cannot be had raise LqrConfigError (in every process):
+    nothing falls back to another carrier."""
+    if transport not in (None,) + TRANSPORTS:
+        raise LqrConfigError(
+            _("unknown transport {t!r}; use one of {ok}")
+            .format(t=transport, ok=", ".join(TRANSPORTS)))
     if not (dist.is_available() and dist.is_initialized()):
         raise LqrConfigError(
             _("make_process_mesh needs an initialized torch.distributed "
@@ -235,20 +302,52 @@ def make_process_mesh(data: int | None = None, device=None,
                   "device=\"cpu\" for CPU rows"))
         local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
         device = torch.device("cuda", local % torch.cuda.device_count())
-    names = [None] * n
-    dist.all_gather_object(names, str(resolve_device(device)), group=group)
+    device = resolve_device(device)
+    places = [None] * n
+    dist.all_gather_object(places, (str(device), socket.gethostname()),
+                           group=group)
+    names = [x for x, _host in places]
+    local = (len({h for _x, h in places}) == 1
+             and len({torch.device(x).type for x in names}) == 1)
+    if transport is None:
+        transport = "mailbox" if local else "gloo"
+    elif transport == "mailbox" and not local:
+        raise LqrConfigError(
+            _("the mailbox transport needs every process of the group on "
+              "this host and shards of one device type; the group has "
+              "{p}").format(p=", ".join(f"{x} on {h}" for x, h in places)))
+    timeout = _timeout_s(group)
     cols = n // data
-    row_groups = None
+    me = dist.get_rank(group)
+    row_groups = mailboxes = mailbox = None
     if cols > 1:
         row_groups = tuple(
             dist.new_group([dist.get_global_rank(group, r)
                             for r in range(d * cols, (d + 1) * cols)],
-                           backend="gloo")
+                           backend="gloo",
+                           timeout=datetime.timedelta(seconds=timeout))
             for d in range(data))
+    if transport == "mailbox":
+        error = ""
+        if cols > 1:
+            try:     # a row's processes agree; the rows may not
+                mailboxes = tuple(
+                    Mailbox(row_groups[d], device, timeout, _CHANNELS)
+                    if d == me // cols else None for d in range(data))
+            except LqrConfigError as e:
+                error = str(e)
+        errors = [None] * n
+        dist.all_gather_object(errors, error, group=group)
+        if any(errors):
+            raise LqrConfigError(next(e for e in errors if e))
+        # the gather of whole planes: one slot a ring (gather releases its
+        # parts at once)
+        mailbox = Mailbox(group, device, timeout, ("gather",), slots=1)
     return Mesh(tuple(tuple(torch.device(x)
                             for x in names[d * cols:(d + 1) * cols])
                       for d in range(data)),
-                group=group, ranks=tuple(range(n)), row_groups=row_groups)
+                group=group, ranks=tuple(range(n)), row_groups=row_groups,
+                transport=transport, mailboxes=mailboxes, mailbox=mailbox)
 
 
 class ShardedState(NamedTuple):
@@ -313,37 +412,63 @@ def shard_batch_state(st: MapState, mesh: Mesh,
 
 
 def _gather_processes(sst: ShardedState) -> MapState:
-    """gather_state of a mesh over processes: every shard all-gathered over
-    the group as host copies, the columns of each row joined, then the
-    rows, onto this process's device."""
+    """gather_state of a mesh over processes: every shard all-gathered, the
+    columns of each row joined, then the rows, onto this process's device.
+    The planes go through the group's mailbox under the mailbox carrier,
+    else over the group as host copies; the images' widths and depths
+    (host arrays) over the group."""
     mesh = sst.mesh
     d0, c0 = mesh.local_shards[0]
     st = sst.shards[d0][c0]
     dev = st.vs.device
     n_data, n_cols = mesh.shape["data"], len(sst.shards[d0])
+    box = mesh.mailbox
+    planes = [getattr(st, name) for name in _STATE_PLANES] + list(st.aux)
+    if box is not None:
+        box.reserve({"gather": max(t.numel() * t.element_size()
+                                   for t in planes if t is not None)})
 
-    def gather(t, join_cols: bool):
-        """t of every shard on the host: the rows in order, each the join
-        of its columns (join_cols) or its first column's t."""
-        host = t.cpu().contiguous()
-        parts = [torch.empty_like(host) for _ in mesh.ranks]
-        t0 = time.perf_counter()
-        dist.all_gather(parts, host, group=mesh.group)
-        EXCHANGE_SECONDS["process"] += time.perf_counter() - t0
-        EXCHANGES["process"] += 1
+    def join(parts, join_cols: bool):
+        """The rows in order, each the join of its columns (join_cols) or
+        its first column's part; parts in group rank order."""
         rows = [[parts[mesh.rank_of(d, c)] for c in range(n_cols)]
                 for d in range(n_data)]
         return torch.cat([torch.cat(r, dim=2) if join_cols else r[0]
                           for r in rows])
 
-    def plane(t):
-        return None if t is None else gather(t, sst.cols).to(dev)
+    def over_group(t, join_cols: bool):
+        host = _to_host("process", t)
+        parts = [torch.empty_like(host) for _ in mesh.ranks]
+        dist.all_gather(parts, host, group=mesh.group)
+        GLOO_MESSAGES["process"] += 1
+        return join(parts, join_cols)
 
-    return MapState(
+    def plane(t):
+        if t is None:
+            return None
+        t0 = time.perf_counter()
+        if box is not None:
+            out = box.gather("gather", t, lambda p: join(p, sst.cols))
+        else:
+            out = _from_host("process", over_group(t, sst.cols), dev)
+        EXCHANGE_SECONDS["process"] += time.perf_counter() - t0
+        EXCHANGES["process"] += 1
+        return out
+
+    def host_array(a):
+        t0 = time.perf_counter()
+        out = over_group(torch.from_numpy(a), False).numpy()
+        EXCHANGE_SECONDS["process"] += time.perf_counter() - t0
+        EXCHANGES["process"] += 1
+        return out
+
+    out = MapState(
         **{name: plane(getattr(st, name)) for name in _STATE_PLANES},
         aux=tuple(plane(a) for a in st.aux),
-        ref_w=gather(torch.from_numpy(st.ref_w), False).numpy(),
-        depth=gather(torch.from_numpy(st.depth), False).numpy())
+        ref_w=host_array(st.ref_w), depth=host_array(st.depth))
+    if box is not None:
+        box.settle()
+    return out
 
 
 def gather_state(sst: ShardedState) -> MapState:
@@ -455,6 +580,12 @@ class _LocalRow:
     def check_steps(self, steps) -> None:
         """Nothing to check: one process takes every shard's steps."""
 
+    def reserve(self, sizes: dict) -> None:
+        """Room for messages of sizes[channel] bytes: nothing to make."""
+
+    def settle(self) -> None:
+        """The end of a seam step: nothing to wait for."""
+
 
 class _ProcessRow:
     """The exchanges of this process's column shard (d, c) with the other
@@ -483,9 +614,10 @@ class _ProcessRow:
         ops, bufs = [], {}
         for make, peer in ((to_left, self.left), (to_right, self.right)):
             if make is not None and peer is not None:
-                msg = make(0).contiguous().cpu()
+                msg = _to_host("halo", make(0))
                 ops.append(dist.isend(msg, peer, self.group, _TAGS[tag]))
                 EXCHANGES["halo"] += 1
+                GLOO_MESSAGES["halo"] += 1
         # the left neighbour sends right, the right neighbour left
         for side, make, peer in (("left", to_right, self.left),
                                  ("right", to_left, self.right)):
@@ -496,13 +628,13 @@ class _ProcessRow:
         for op in ops:
             op.wait()
         dev = self.devices[0]
-        got = [[bufs[side].to(dev)] if side in bufs else [None]
-               for side in ("left", "right")]
+        got = [[_from_host("halo", bufs[side], dev)] if side in bufs
+               else [None] for side in ("left", "right")]
         EXCHANGE_SECONDS["halo"] += time.perf_counter() - t0
         return got[0], got[1]
 
     def _all_gather(self, t: torch.Tensor) -> list:
-        host = t.contiguous().cpu()
+        host = _to_host("gather", t)
         parts = [torch.empty_like(host) for _ in range(self.n)]
         dist.all_gather(parts, host, group=self.group)
         EXCHANGES["gather"] += 1
@@ -513,7 +645,9 @@ class _ProcessRow:
         all-gather over the row (this process's part is its shard's)."""
         t0 = time.perf_counter()
         (t,) = parts
-        out = torch.cat(self._all_gather(t), dim=dim).to(self.devices[0])
+        GLOO_MESSAGES["gather"] += 1
+        out = _from_host("gather", torch.cat(self._all_gather(t), dim=dim),
+                         self.devices[0])
         EXCHANGE_SECONDS["gather"] += time.perf_counter() - t0
         return out
 
@@ -532,6 +666,63 @@ class _ProcessRow:
                   "carve: every process must pass the same images and "
                   "counts"))
 
+    def reserve(self, sizes: dict) -> None:
+        """Room for messages of sizes[channel] bytes: gloo needs none."""
+
+    def settle(self) -> None:
+        """The end of a seam step: gloo's messages were waited on."""
+
+
+class _MailboxRow(_ProcessRow):
+    """The exchanges of this process's column shard (d, c) through its
+    row's mailbox (``Mesh.mailboxes[d]``): the same messages as
+    _ProcessRow's, each put into the receiver's ring on this process's
+    stream and read in place there, with no host copy and no message over
+    the group (but check_steps'). A shift posts both of its sends before
+    either wait, so no stream waits on a flag whose writer waits on it. A
+    seam step ends in ``settle``, the host's one wait, with the group's
+    timeout."""
+
+    def __init__(self, mesh: Mesh, d: int, c: int):
+        super().__init__(mesh, d, c)
+        self.box = mesh.mailboxes[d]
+
+    def shift(self, tag: str, to_left, to_right, shape, dtype):
+        """As _LocalRow.shift, through the mailbox."""
+        t0 = time.perf_counter()
+        c = self.cols[0]
+        for make, j in ((to_left, c - 1), (to_right, c + 1)):
+            if make is not None and 0 <= j < self.n:
+                self.box.send(tag, self.slot[j], make(0).contiguous())
+                EXCHANGES["halo"] += 1
+        # the left neighbour sends right, the right neighbour left
+        got = [[self.box.recv(tag, self.slot[j], shape, dtype)]
+               if make is not None and 0 <= j < self.n else [None]
+               for make, j in ((to_right, c - 1), (to_left, c + 1))]
+        EXCHANGE_SECONDS["halo"] += time.perf_counter() - t0
+        return got[0], got[1]
+
+    def gather(self, parts, dim: int = 0) -> torch.Tensor:
+        """As _ProcessRow.gather, through the mailbox."""
+        t0 = time.perf_counter()
+        (t,) = parts
+        out = self.box.gather(
+            "gather", t, lambda p: torch.cat([p[s] for s in self.slot],
+                                             dim=dim))
+        EXCHANGES["gather"] += 1
+        EXCHANGE_SECONDS["gather"] += time.perf_counter() - t0
+        return out
+
+    def reserve(self, sizes: dict) -> None:
+        """Slots of sizes[channel] bytes in the row's rings (a collective of
+        the row; a larger region only where the present one is short)."""
+        self.box.reserve(sizes)
+
+    def settle(self) -> None:
+        """The end of a seam step: wait until this process's stream has
+        run it (TimeoutError past the group's timeout)."""
+        self.box.settle()
+
 
 def _row(mesh: Mesh, d: int):
     """The exchanges of mesh row d's column shards that this process
@@ -539,6 +730,8 @@ def _row(mesh: Mesh, d: int):
     if mesh.ranks is None:
         return _LocalRow(mesh.devices[d])
     (c,) = [c for dd, c in mesh.local_shards if dd == d]
+    if mesh.transport == "mailbox":
+        return _MailboxRow(mesh, d, c)
     return _ProcessRow(mesh, d, c)
 
 
@@ -681,13 +874,27 @@ def _carve_seam_local(cb, cbs, crg, vs, w: int, s: int, pref_left: bool,
     return out[0], cbs2, crg2, vs_out
 
 
+def _message_bytes(H: int, Wl: int, R: int, delta_x: int, planes: int,
+                   has_rig: bool) -> list:
+    """The largest message of each of _CHANNELS in a column-sharded carve
+    of [H, Wl] shards, in bytes: the energy's column, the DP's halo plane
+    of R rows, the compaction's carry of ``planes`` columns, and the
+    largest of the backtrack's frontier and backpointers and the commit's
+    counts."""
+    G = max(R * delta_x, 1)
+    return [4 * H, 4 * (1 + R * (2 if has_rig else 1)) * G, 4 * planes * H,
+            max(4 * Wl, H * Wl, 4 * H)]
+
+
 def extend_map_sharded(mesh: Mesh, cfg: EngineConfig, sst: ShardedState,
                        k) -> ShardedState:
     """The column-sharded resize: k[b] further seams (scalar or [B]) into
     every image of a state placed by shard_batch_state(mesh, cols=True).
     Each seam step runs on the image's column shards (_carve_seam_local),
-    on a mesh over processes each process running its own shard's part;
-    the visibility map equals the unsharded resize's bit for bit."""
+    on a mesh over processes each process running its own shard's part
+    (the row's processes first compare their steps and reserve their
+    messages' room; each step then ends in the row's settle); the
+    visibility map equals the unsharded resize's bit for bit."""
     H, Wb = cfg.H, cfg.Wb
     n_cols = mesh.shape["cols"]
     R = _block_rows(H, cfg.delta_x, Wb // n_cols)
@@ -700,7 +907,13 @@ def extend_map_sharded(mesh: Mesh, cfg: EngineConfig, sst: ShardedState,
         held = [sst.shards[d][c] for c in row.cols]
         kd = k[d * Bd:(d + 1) * Bd]
         ref_w, depth = held[0].ref_w, held[0].depth.copy()
-        row.check_steps(np.concatenate([kd, depth, ref_w]))
+        sizes = _message_bytes(
+            H, Wb // n_cols, R, cfg.delta_x,
+            sum(getattr(held[0], f) is not None
+                for f in ("cur_b", "cur_bias", "cur_rig")),
+            held[0].cur_rig is not None)
+        row.check_steps(np.concatenate([kd, depth, ref_w, sizes]))
+        row.reserve(dict(zip(_CHANNELS, sizes)))
 
         def split(name):
             if getattr(held[0], name) is None:
@@ -720,6 +933,7 @@ def extend_map_sharded(mesh: Mesh, cfg: EngineConfig, sst: ShardedState,
                     int(ref_w[i]), row=row, H=H, delta_x=cfg.delta_x,
                     nrg=cfg.nrg, R=R)
                 depth[i] += 1
+                row.settle()
 
         def join(parts, i, old):
             if old is None:

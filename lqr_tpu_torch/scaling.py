@@ -2,7 +2,7 @@
 ``scripts/scaling.py``.
 
     python -m lqr_tpu_torch.scaling [--devices cuda|cpu] [--quick]
-        [--procs 2] [--cols 1]
+        [--procs 2] [--cols 1] [--transport gloo|mailbox]
 
 Prints one JSON line per measurement and exits 1 when a line is not
 bit-exact, a counter reads other than the design says, or a worker fails:
@@ -19,17 +19,23 @@ unlike ``bench``, this program is a check.
   lqr_tpu_torch.scaling --worker RANK WORLD INIT``) in one gloo group,
   initialized through a file in a fresh temporary directory, on a process
   mesh of --procs / --cols 'data' rows of --cols column shards, a shard a
-  process. Each carves its shard of the same batch on its device (on a
-  one-card machine every worker on cuda:0), after a barrier; the shards are
-  all-gathered and rank 0 holds the vs maps against a one-process
-  ``BatchCarver``, every worker's gathered map the same. The batch: with
+  process, its messages carried by --transport (default: the mesh's
+  choice, the mailbox for workers on one host; the line's ``transport``
+  says which ran). Each carves its shard of the same batch on its device
+  (on a one-card machine every worker on cuda:0), after a barrier; the
+  shards are all-gathered (``gather_s``; ``gather_again_s`` a second
+  time, with the carrier's room already made) and rank 0 holds the vs
+  maps against a one-process ``BatchCarver``, every worker's gathered map
+  the same. The batch: with
   one column a 'data' row, the cfg4 wave; with a 'cols' axis of one row,
   the column line's image; of several rows, a row of COL_BATCH cfg1-size
   images each, with bias and rigidity. With a 'cols' axis the line holds
   the halo messages the workers of a row send a seam against the column
-  line's prediction, and gives the time each spent in its messages. A
-  worker that fails, or is not done within WORKER_TIMEOUT_S, fails the
-  line.
+  line's prediction, gives the time each spent in its messages (under the
+  mailbox the time to enqueue them), and the host copies and the messages
+  of data over the group of a row's seam step, which under the mailbox
+  must be 0. A worker that fails, or is not done within WORKER_TIMEOUT_S,
+  fails the line.
 - ``column_sharded_multiseam_resize``: ``BatchCarver`` on SHARDS column
   shards of the device (``extend_map_sharded``): ms/seam, the launches a
   seam, the DP's block rows R and the halo exchanges a seam against the
@@ -166,8 +172,12 @@ def worker_batch(sz: dict, data: int, cols: int):
         sz["cfg1_seams"]
 
 
+_COUNTERS = ("EXCHANGES", "EXCHANGE_SECONDS", "HOST_COPIES", "GLOO_MESSAGES")
+
+
 def run_worker(rank: int, world: int, init: str, kind: str,
-               quick: bool, cols: int = 1) -> int:
+               quick: bool, cols: int = 1,
+               transport: str | None = None) -> int:
     """One process of multiprocess_gloo_resize: its shard of the batch on
     its device; prints one JSON line."""
     sz = QUICK if quick else FULL
@@ -176,7 +186,8 @@ def run_worker(rank: int, world: int, init: str, kind: str,
         timeout=datetime.timedelta(seconds=WORKER_TIMEOUT_S))
     try:
         mesh = make_process_mesh(data=world // cols,
-                                 device="cpu" if kind == "cpu" else None)
+                                 device="cpu" if kind == "cpu" else None,
+                                 transport=transport)
         d, c = mesh.local_shards[0]
         dev = mesh.devices[d][c]
         images, kw, seams = worker_batch(sz, mesh.shape["data"], cols)
@@ -184,29 +195,35 @@ def run_worker(rank: int, world: int, init: str, kind: str,
         bc = BatchCarver(images, mesh=mesh, **kw)
         sync(dev)
         dist.barrier()
-        before = dict(sharding.EXCHANGES)
-        secs = dict(sharding.EXCHANGE_SECONDS)
+        before = {name: dict(getattr(sharding, name)) for name in _COUNTERS}
         t0 = time.perf_counter()
         _, launches = launches_of(lambda: bc.carve(seams))
         sync(dev)
         wall = time.perf_counter() - t0
-        moved = _exchanges_since(before)
-        t0 = time.perf_counter()
-        st = bc.state
-        sync(dev)
+        moved = {name.lower(): {k: v - before[name][k] for k, v in
+                                getattr(sharding, name).items()}
+                 for name in _COUNTERS}
+        gather_s = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            st = bc.state
+            sync(dev)
+            gather_s.append(time.perf_counter() - t0)
         Bd = len(images) // mesh.shape["data"]
         cfg = bc.cfg
         out = {"rank": rank, "device": str(dev), "shard": [d, c],
+               "transport": mesh.transport,
                "images": Bd, "seams": seams, "H": cfg.H,
                "block_rows": sharding._block_rows(cfg.H, cfg.delta_x,
                                                   cfg.Wb // cols),
                "img_seams": int(st.depth[d * Bd:(d + 1) * Bd].sum()),
                "wall_s": wall, "launches": launches,
-               "exchanges_in_carve_loop": sum(moved.values()),
-               "exchanges": moved,
-               "exchange_s": {k: v - secs[k] for k, v in
-                              sharding.EXCHANGE_SECONDS.items()},
-               "gather_s": time.perf_counter() - t0,
+               "exchanges_in_carve_loop": sum(moved["exchanges"].values()),
+               "exchanges": moved["exchanges"],
+               "exchange_s": moved["exchange_seconds"],
+               "host_copies": moved["host_copies"],
+               "gloo_messages": moved["gloo_messages"],
+               "gather_s": gather_s[0], "gather_again_s": gather_s[1],
                "vs_sha256": hashlib.sha256(
                    st.vs.cpu().numpy().tobytes()).hexdigest()}
         if rank == 0:
@@ -242,9 +259,11 @@ def _wait(procs, timeout: float) -> None:
 
 
 def multiprocess_gloo_resize(kind: str, quick: bool, procs: int,
-                             cols: int = 1) -> dict:
-    """A process mesh of ``procs`` processes (make_process_mesh): procs /
-    cols 'data' rows of ``cols`` column shards."""
+                             cols: int = 1,
+                             transport: str | None = None) -> dict:
+    """A process mesh of ``procs`` processes (make_process_mesh) in one gloo
+    group: procs / cols 'data' rows of ``cols`` column shards, its messages
+    carried by ``transport`` (None: the mesh's choice)."""
     if cols < 1 or procs % cols != 0:
         raise LqrConfigError(f"{procs} processes cannot form rows of {cols} "
                              f"column shards")
@@ -265,7 +284,8 @@ def multiprocess_gloo_resize(kind: str, quick: bool, procs: int,
         workers = [subprocess.Popen(
             [sys.executable, "-m", "lqr_tpu_torch.scaling", "--worker",
              str(i), str(procs), init, "--devices", kind, "--cols",
-             str(cols)] + (["--quick"] if quick else []),
+             str(cols)] + (["--quick"] if quick else [])
+            + (["--transport", transport] if transport else []),
             stdout=out, stderr=err, env=env) for i, (out, err) in
             enumerate(logs)]
         try:
@@ -283,23 +303,30 @@ def multiprocess_gloo_resize(kind: str, quick: bool, procs: int,
             lines.append(json.loads(out.read().strip().splitlines()[-1]))
     exact = (lines[0].get("bit_exact") is True
              and len({w["vs_sha256"] for w in lines}) == 1)
+    carriers = {w["transport"] for w in lines}
     line = {
         "metric": "multiprocess_gloo_resize", "value": exact,
         "unit": f"vs_map_bit_equal_across_{procs}_processes",
         "vs_baseline": None, "processes": procs,
         "mesh": {"data": procs // cols, "cols": cols}, "backend": "gloo",
-        "init_method": "file", "workers": lines, "wall_s": wall,
+        "transport": lines[0]["transport"], "init_method": "file",
+        "workers": lines, "wall_s": wall,
+        "gather_s": max(w["gather_s"] for w in lines),
+        "gather_again_s": max(w["gather_again_s"] for w in lines),
         "bit_exact": exact, "wall_note": WALL_NOTE}
+    agreed = len(carriers) == 1 and transport in (None, *carriers)
     if cols == 1:
-        line["ok"] = exact and all(w["exchanges_in_carve_loop"] == 0
-                                   for w in lines)
+        line["ok"] = exact and agreed and all(
+            w["exchanges_in_carve_loop"] == 0 for w in lines)
         return line
     # a seam step is one seam of one image; a row's workers each take
     # every step of the row's images
     w0 = lines[0]
     steps = w0["images"] * w0["seams"]
-    halo = (sum(w["exchanges"]["halo"] for w in lines)
-            / (steps * (procs // cols)))
+    rows = steps * (procs // cols)
+    halo = sum(w["exchanges"]["halo"] for w in lines) / rows
+    copies = sum(sum(w["host_copies"].values()) for w in lines) / rows
+    gloo = sum(sum(w["gloo_messages"].values()) for w in lines) / rows
     predicted = (cols - 1) * (2 * (w0["H"] // w0["block_rows"]) + 3)
     line.update({
         "block_rows": w0["block_rows"],
@@ -310,7 +337,10 @@ def multiprocess_gloo_resize(kind: str, quick: bool, procs: int,
                               for w in lines],
         "halo_messages_per_seam": halo,
         "halo_messages_predicted": predicted,
-        "ok": exact and halo == predicted})
+        "host_copies_per_seam": copies,
+        "gloo_messages_per_seam": gloo,
+        "ok": (exact and agreed and halo == predicted
+               and (line["transport"] == "gloo" or copies == gloo == 0))})
     return line
 
 
@@ -355,13 +385,16 @@ def main(argv=None) -> int:
                     help="processes of multiprocess_gloo_resize")
     ap.add_argument("--cols", type=int, default=1,
                     help="column shards of each row of its process mesh")
+    ap.add_argument("--transport", choices=sharding.TRANSPORTS,
+                    help="carrier of the process mesh's messages (default: "
+                         "the mesh's choice)")
     ap.add_argument("--worker", nargs=3, metavar=("RANK", "WORLD", "INIT"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
         rank, world, init = args.worker
         return run_worker(int(rank), int(world), init, args.devices,
-                          args.quick, args.cols)
+                          args.quick, args.cols, args.transport)
     try:
         device = resolve_device(args.devices)
     except LqrConfigError as e:
@@ -378,7 +411,8 @@ def main(argv=None) -> int:
              lambda: data_parallel_scaling(device, sz)),
             ("multiprocess_gloo_resize",
              lambda: multiprocess_gloo_resize(args.devices, args.quick,
-                                              args.procs, args.cols)),
+                                              args.procs, args.cols,
+                                              args.transport)),
             ("column_sharded_multiseam_resize",
              lambda: column_sharded_multiseam_resize(device, sz))):
         try:

@@ -854,3 +854,123 @@ def test_interactive_session_on_the_card_matches_cpu(cuda):
             np.testing.assert_array_equal(lg.pixels, lw.pixels,
                                           err_msg=f"step {j} {lg.name}")
         assert ss[cuda].map_info() == ss["cpu"].map_info(), j
+
+
+_MAILBOX_WORKER = """
+import datetime, json, os, sys, torch, torch.distributed as dist
+from lqr_tpu_torch.parallel.mailbox import Mailbox
+rank, init, n, mode = int(sys.argv[1]), sys.argv[2], int(sys.argv[3]), \\
+    sys.argv[4]
+dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=10))
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+box = Mailbox(dist.group.WORLD, dev, 10.0, ("dp",), slots=2)
+shape = (33, 32)                  # a halo plane of R = 32 rows (2048^2)
+box.reserve({"dp": 33 * 32 * 4})
+stream = (torch.cuda.Stream(dev) if mode == "stream" and rank == 0
+          else torch.cuda.current_stream(dev))
+bad = 0
+with torch.cuda.stream(stream):
+    base = torch.arange(33 * 32, dtype=torch.float32,
+                        device=dev).view(shape)
+    if rank == 1:
+        for q in range(n):        # one way: the receiver lags behind
+            if mode == "die" and q == n // 2:
+                torch.cuda.synchronize()
+                os._exit(7)
+            box.send("dp", 0, base + q)
+        echoes = []
+        for q in range(n):        # round trips: each message sent back
+            box.send("dp", 0, base - q)
+            echoes.append(box.recv("dp", 0, shape, torch.float32).clone())
+        box.settle()
+        bad = sum(not torch.equal(e, base - q) for q, e in enumerate(echoes))
+    else:
+        got = []
+        for q in range(n):
+            got.append(box.recv("dp", 1, shape, torch.float32).clone())
+            if mode == "die" and q % 8 == 7:
+                box.settle()      # a seam step's end: a deadline
+        box.settle()
+        bad = sum(not torch.equal(g, base + q) for q, g in enumerate(got))
+        for q in range(n):
+            box.send("dp", 1, box.recv("dp", 1, shape, torch.float32))
+        box.settle()
+print(json.dumps({"rank": rank, "bad": bad}), flush=True)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def _mailbox_workers(tmp_path, n: int, mode: str, timeout: float = 120):
+    """Two processes on the card trading n messages through a 2-slot
+    mailbox ring (_MAILBOX_WORKER): each one's (return code, stdout,
+    stderr), every process killed at the timeout."""
+    import os
+    import pathlib
+    import signal
+    import subprocess
+    import sys
+    _build.load()               # built once, before the workers load it
+    root = pathlib.Path(__file__).resolve().parent.parent
+    env = {**os.environ, "GLOO_SOCKET_IFNAME": "lo",
+           "PYTHONPATH": os.pathsep.join(
+               p for p in (str(root), os.environ.get("PYTHONPATH")) if p)}
+    init = (tmp_path / "rendezvous").as_uri()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MAILBOX_WORKER, str(r), init, str(n), mode],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        start_new_session=True) for r in range(2)]
+    out = []
+    for p in procs:
+        try:
+            o, e = p.communicate(timeout=timeout)
+            out.append((p.returncode, o, e))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                os.killpg(q.pid, signal.SIGKILL)
+                q.communicate()
+            pytest.fail(f"a mailbox worker was not done within {timeout} s")
+    return out
+
+
+@pytest.mark.parametrize("mode", ["default", "stream"])
+def test_mailbox_ring_on_the_card(cuda, tmp_path, mode):
+    """Two processes on the card trade 500 messages one way and 500 round
+    trips through a 2-slot ring (CUDA IPC, stream memory operations), every
+    payload checked; in "stream" the receiver runs on a second stream."""
+    for rc, out, err in _mailbox_workers(tmp_path, 500, mode):
+        assert rc == 0, err[-3000:]
+        assert '"bad": 0' in out, out
+
+
+def test_mailbox_dead_peer_on_the_card(cuda, tmp_path):
+    """A sender that dies halfway leaves its receiver's stream waiting on a
+    flag; the receiver's next settle raises TimeoutError past the group's
+    timeout (10 s) instead of hanging."""
+    import time
+    t0 = time.monotonic()
+    (rc0, _out0, err0), (rc1, _o1, _e1) = _mailbox_workers(tmp_path, 64,
+                                                           "die")
+    assert rc1 == 7
+    assert rc0 != 0 and "TimeoutError" in err0, err0[-3000:]
+    assert time.monotonic() - t0 < 100
+
+
+@pytest.mark.parametrize("procs,cols", [(2, 1), (4, 2)])
+def test_process_mesh_mailbox_on_the_card(cuda, procs, cols):
+    """lqr_tpu_torch.scaling's process mesh at its quick sizes on the card
+    under the mailbox: every worker's map bit-equal to one process's, and
+    with a 'cols' axis the halo messages as predicted with no host copy
+    and no message of data over the group."""
+    from lqr_tpu_torch import scaling
+    line = scaling.multiprocess_gloo_resize("cuda", True, procs, cols,
+                                            "mailbox")
+    assert line["ok"] is True and line["bit_exact"] is True, line
+    assert line["transport"] == "mailbox"
+    if cols > 1:
+        assert line["host_copies_per_seam"] == 0
+        assert line["gloo_messages_per_seam"] == 0
+        assert (line["halo_messages_per_seam"]
+                == line["halo_messages_predicted"])

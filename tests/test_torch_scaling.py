@@ -4,9 +4,11 @@ CPU processes) and its measuring program ``python -m lqr_tpu_torch.scaling``.
 Two gloo processes share one BatchCarver: their gathered vs maps, depths,
 images_at and aux_at are held against a one-process BatchCarver of the
 port and the JAX package's BatchCarver on the same ragged, masked batch
-(tolerance 0). The exchange counter (sharding.EXCHANGES) reads 0 over a
-'data' carve, and on the 'cols' axis the halo exchanges of each seam that
-_block_rows predicts. Every subprocess runs under a timeout of its own, in
+(tolerance 0), the gather carried by the mesh's own choice (the mailbox's
+shared memory: both processes are on this host) and, again, over gloo.
+The exchange counter (sharding.EXCHANGES) reads 0 over a 'data' carve,
+and on the 'cols' axis the halo exchanges of each seam that _block_rows
+predicts. Every subprocess runs under a timeout of its own, in
 a session of its own that is killed whole when the timeout passes.
 """
 
@@ -44,8 +46,9 @@ from lqr_tpu_torch import LqrImageError
 from lqr_tpu_torch.parallel import BatchCarver, make_mesh, make_process_mesh
 from lqr_tpu_torch.parallel import sharding
 
-rank, world, init, tmp = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], \\
-    sys.argv[4]
+rank, world, init, tmp, transport = (int(sys.argv[1]), int(sys.argv[2]),
+                                     sys.argv[3], sys.argv[4],
+                                     sys.argv[5] or None)
 dist.init_process_group("gloo", init_method=init, rank=rank,
                         world_size=world,
                         timeout=datetime.timedelta(seconds=60))
@@ -62,8 +65,9 @@ out["cols_mesh"] = {"shape": cols.shape,
                     "local_shards": [list(x) for x in cols.local_shards],
                     "col_sharded": BatchCarver([imgs[0]],
                                                mesh=cols).col_sharded}
-mesh = make_process_mesh(device="cpu")
+mesh = make_process_mesh(device="cpu", transport=transport)
 out["local_rows"] = list(mesh.local_rows)
+out["transport"] = mesh.transport
 try:
     BatchCarver(imgs[:3], mesh=mesh)
 except LqrImageError as e:
@@ -76,7 +80,12 @@ bc = BatchCarver(imgs, biases=biases, rigidity=30.0, aux=aux, mesh=mesh)
 before = dict(sharding.EXCHANGES)
 bc.carve(list(inp["seams"]))
 out["exchanges"] = {k: v - before[k] for k, v in sharding.EXCHANGES.items()}
+before = {name: dict(getattr(sharding, name))
+          for name in ("GLOO_MESSAGES", "HOST_COPIES")}
 st = bc.state
+for name, was in before.items():
+    out[name.lower()] = {k: v - was[k]
+                         for k, v in getattr(sharding, name).items()}
 got = {"vs": st.vs.numpy(), "cur_b": st.cur_b.numpy(), "depth": st.depth}
 for i, im in enumerate(bc.images_at(widths)):
     got[f"out{i}"] = im
@@ -121,11 +130,10 @@ def _inputs():
     return imgs, biases, aux
 
 
-@pytest.fixture(scope="module")
-def two_processes(tmp_path_factory):
-    """Two gloo CPU processes carving one BatchCarver: each rank's gathered
-    arrays and its checks."""
-    tmp = tmp_path_factory.mktemp("gloo")
+def _two_processes(tmp, transport: str = ""):
+    """Two gloo CPU processes carving one BatchCarver on a mesh of
+    ``transport`` ("": the mesh's choice): each rank's gathered arrays and
+    its checks."""
     imgs, biases, aux = _inputs()
     arrays = {f"img{i}": im for i, im in enumerate(imgs)}
     arrays.update({f"bias{i}": b for i, b in enumerate(biases)
@@ -138,7 +146,8 @@ def two_processes(tmp_path_factory):
            "PYTHONPATH": os.pathsep.join(
                p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p)}
     procs = [subprocess.Popen([sys.executable, "-c", _WORKER, str(r), "2",
-                               init, str(tmp)], stdout=subprocess.PIPE,
+                               init, str(tmp), transport],
+                              stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True, env=env,
                               start_new_session=True) for r in range(2)]
     errs = []
@@ -155,6 +164,12 @@ def two_processes(tmp_path_factory):
     return [(dict(np.load(tmp / f"rank{r}.npz")),
              json.loads((tmp / f"rank{r}.json").read_text()))
             for r in range(2)]
+
+
+@pytest.fixture(scope="module")
+def two_processes(tmp_path_factory):
+    """The mesh's own carrier: the mailbox (both processes on this host)."""
+    return _two_processes(tmp_path_factory.mktemp("gloo"))
 
 
 def _carve(carver):
@@ -191,6 +206,29 @@ def test_process_mesh_rows_and_refusals(two_processes):
                                        "col_sharded": True}
         assert checks["indivisible"] == checks["indivisible_one_process"]
         assert "cannot shard evenly over 2 'data'" in checks["indivisible"]
+
+
+def test_data_gather_over_each_carrier(two_processes, tmp_path):
+    """The 'data' gather through the mailbox's shared memory (the mesh's own
+    choice) and over gloo give the same maps, depths, images and aux
+    images; the mailbox sends the planes as no message over the group (the
+    widths and depths, host arrays, still go over it) and neither makes a
+    host copy of CPU shards."""
+    gloo = _two_processes(tmp_path, "gloo")
+    for (got, checks), (want, checks_gloo) in zip(two_processes, gloo):
+        assert checks["transport"] == "mailbox"
+        assert checks_gloo["transport"] == "gloo"
+        assert got.keys() == want.keys()
+        for key in got:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+        planes = 8     # ref, bias, rig, vs, cur_b, cur_bias, cur_rig, aux
+        assert checks["gloo_messages"] == {"halo": 0, "gather": 0,
+                                           "process": 2}
+        assert checks_gloo["gloo_messages"] == {"halo": 0, "gather": 0,
+                                                "process": planes + 2}
+        for c in (checks, checks_gloo):
+            assert c["host_copies"] == {"halo": 0, "gather": 0,
+                                        "process": 0}
 
 
 def test_data_axis_exchanges_nothing(two_processes):
@@ -272,6 +310,9 @@ def test_scaling_program_process_cols():
     multi = {x["metric"]: x for x in _lines(out)}["multiprocess_gloo_resize"]
     assert multi["ok"] is True and multi["bit_exact"] is True, multi
     assert multi["mesh"] == {"data": 2, "cols": 2}
+    assert multi["transport"] == "mailbox"       # the workers share a host
+    assert multi["host_copies_per_seam"] == 0
+    assert multi["gloo_messages_per_seam"] == 0
     workers = multi["workers"]
     assert [w["shard"] for w in workers] == [[0, 0], [0, 1], [1, 0], [1, 1]]
     assert len({w["vs_sha256"] for w in workers}) == 1
@@ -280,6 +321,28 @@ def test_scaling_program_process_cols():
     assert multi["block_rows"] == 8          # H 24 over shards of 64 columns
     assert (multi["halo_messages_per_seam"]
             == multi["halo_messages_predicted"] == 2 * 24 // 8 + 3)
+
+
+def test_scaling_program_process_cols_over_gloo():
+    """--transport gloo: the same 2 x 2 process mesh over gloo, its map the
+    mailbox's, every message of a row's seam step over the group (9 halos
+    and 2 processes' 3 all-gathers), no host copy of CPU shards."""
+    lines = {}
+    for transport in ("gloo", "mailbox"):
+        rc, out, err = _run([sys.executable, "-m", "lqr_tpu_torch.scaling",
+                             "--devices", "cpu", "--quick", "--procs", "4",
+                             "--cols", "2", "--transport", transport])
+        assert rc == 0, err[-3000:]
+        lines[transport] = {x["metric"]: x for x in _lines(out)}[
+            "multiprocess_gloo_resize"]
+    gloo, mailbox = lines["gloo"], lines["mailbox"]
+    assert gloo["ok"] is True and gloo["transport"] == "gloo", gloo
+    assert mailbox["transport"] == "mailbox"
+    assert gloo["halo_messages_per_seam"] == 9
+    assert gloo["gloo_messages_per_seam"] == 9 + 2 * 3
+    assert gloo["host_copies_per_seam"] == 0
+    assert ({w["vs_sha256"] for w in gloo["workers"]}
+            == {w["vs_sha256"] for w in mailbox["workers"]})
 
 
 def test_scaling_program_fails_with_a_worker():

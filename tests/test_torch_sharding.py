@@ -346,3 +346,67 @@ def test_cpu_mesh_takes_the_plain_loop(monkeypatch):
     assert dp_cuda.LAUNCHES == before
     for g, w in zip(got[0] + got[1], want[0] + want[1]):
         assert torch.equal(g, w)
+
+
+def test_make_process_mesh_refuses_an_unknown_transport():
+    """A carrier that is neither "gloo" nor "mailbox" is refused before
+    anything else is asked of the group."""
+    with pytest.raises(LqrConfigError, match="unknown transport 'nccl'"):
+        tshard.make_process_mesh(device="cpu", transport="nccl")
+
+
+class _RecordingRow(tshard._LocalRow):
+    """A one-process row of CPU shards that stands in for a row over two
+    processes (its DP's halos go through its shift) and records the bytes
+    of every message by mailbox channel, each received message held to the
+    shape and dtype its receiver declares (a mailbox's slot view)."""
+
+    processes = 2
+
+    def __init__(self, devices):
+        super().__init__(devices)
+        self.bytes = {c: [] for c in tshard._CHANNELS}
+
+    def shift(self, tag, to_left, to_right, shape, dtype):
+        fl, fr = super().shift(tag, to_left, to_right, shape, dtype)
+        for m in fl + fr:
+            if m is not None:
+                assert tuple(m.shape) == tuple(shape) and m.dtype == dtype
+                self.bytes[tag].append(m.numel() * m.element_size())
+        return fl, fr
+
+    def gather(self, parts, dim=0):
+        self.bytes["gather"] += [p.numel() * p.element_size() for p in parts]
+        return super().gather(parts, dim)
+
+
+@pytest.mark.parametrize("dx,masks", [(1, False), (2, True)])
+def test_message_bytes_are_the_largest_messages(dx, masks):
+    """The room a row's mailbox reserves for each channel
+    (sharding._message_bytes) is the largest message that a seam step of
+    the column path sends on it: the energy's column, the DP's halo plane,
+    the compaction's carry and the largest of the gathers."""
+    rng = np.random.default_rng(3)
+    H, W = 32, 250
+    kw = (dict(biases=[rng.normal(0, 9, (H, W)).astype(np.float32)],
+               rigmasks=[np.abs(rng.standard_normal((H, W)))
+                         .astype(np.float32)], rigidity=10.0)
+          if masks else {})
+    bc = tbatch.BatchCarver([random_image(rng, H, W, 3)], delta_x=dx,
+                            mesh=_cpu_mesh(2, data=1), **kw)
+    shards = bc._state.shards[0]
+    Wl = bc.cfg.Wb // 2
+    R = tshard._block_rows(H, dx, Wl)
+
+    def plane(name):
+        if getattr(shards[0], name) is None:
+            return None
+        return [getattr(s, name)[0] for s in shards]
+
+    row = _RecordingRow([torch.device("cpu")] * 2)
+    w = int(shards[0].ref_w[0])
+    tshard._carve_seam_local(plane("cur_b"), plane("cur_bias"),
+                             plane("cur_rig"), plane("vs"), w, 1, True, w,
+                             row=row, H=H, delta_x=dx, nrg=bc.cfg.nrg, R=R)
+    want = tshard._message_bytes(H, Wl, R, dx, 3 if masks else 1, masks)
+    assert [max(row.bytes[c]) for c in tshard._CHANNELS] == want
