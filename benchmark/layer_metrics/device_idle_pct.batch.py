@@ -1,0 +1,8 @@
+"""device_idle_pct.batch: the share of the traced window in which the card ran
+no kernel and no copy, in percent."""
+
+from benchmark import readers
+
+
+def read(run):
+    return readers.device_idle_pct(run)
