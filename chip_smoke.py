@@ -2267,7 +2267,8 @@ def time_interactive(device, tmp, gpu) -> None:
                 sess.set_size(w, N)
         torch.cuda.synchronize()
     events = json.loads(path.read_text())["traceEvents"]
-    spans = [e for e in events if e.get("name") == "retarget"]
+    spans = [e for e in events
+             if e.get("name") == profiling.PREFIX + "retarget"]
     kernels = [e for e in events if "carve_resident" in e.get("name", "")
                and str(e.get("cat", "")).lower() == "kernel"]
     if not spans or not kernels:

@@ -29,6 +29,7 @@ from .core.state import (EngineConfig, init_state, resolve_device,
 from .core import engine as eng
 from .i18n import _
 from .oracle import strength
+from .profiling import annotate, count
 from .utils import codec
 
 
@@ -72,41 +73,44 @@ class Carver:
 
     def __init__(self, pixels: np.ndarray, delta_x: int = 1,
                  rigidity: float = 0.0, device="cuda"):
-        pixels = np.ascontiguousarray(np.asarray(pixels, np.uint8))
-        if pixels.ndim == 2:
-            pixels = pixels[:, :, None]
-        h, w, c = pixels.shape
-        check_channels(c)
-        if not 0 <= int(delta_x) <= MAX_DELTA_X:
-            raise LqrConfigError(
-                _("delta_x={v} out of range 0..{hi}")
-                .format(v=delta_x, hi=MAX_DELTA_X))
-        if rigidity < 0:
-            raise LqrConfigError(
-                _("rigidity={v} must be >= 0").format(v=rigidity))
-        self.device = resolve_device(device)
-        self.delta_x = int(delta_x)
-        self.rigidity = float(rigidity)
-        self.nrg = EnergyFunc.GRAD_XABS
-        self.res_order = ResizeOrder.HOR
-        self.side_switch_freq = DEFAULT_SIDE_SWITCH_FREQUENCY
-        self.enl_step = 1.5
-        self.dump_vmaps = False
-        self.progress = None
+        with annotate("carver.init"):
+            pixels = np.ascontiguousarray(np.asarray(pixels, np.uint8))
+            if pixels.ndim == 2:
+                pixels = pixels[:, :, None]
+            h, w, c = pixels.shape
+            check_channels(c)
+            if not 0 <= int(delta_x) <= MAX_DELTA_X:
+                raise LqrConfigError(
+                    _("delta_x={v} out of range 0..{hi}")
+                    .format(v=delta_x, hi=MAX_DELTA_X))
+            if rigidity < 0:
+                raise LqrConfigError(
+                    _("rigidity={v} must be >= 0").format(v=rigidity))
+            self.device = resolve_device(device)
+            self.delta_x = int(delta_x)
+            self.rigidity = float(rigidity)
+            self.nrg = EnergyFunc.GRAD_XABS
+            self.res_order = ResizeOrder.HOR
+            self.side_switch_freq = DEFAULT_SIDE_SWITCH_FREQUENCY
+            self.enl_step = 1.5
+            self.dump_vmaps = False
+            self.progress = None
 
-        self._C = c
-        # reference arrays, image orientation ([h, w] layout)
-        self._ref_img = torch.tensor(pixels, device=self.device)   # a copy
-        self._ref_bias = None               # f32 [h, w] or None
-        self._ref_rig = None                # f32 [h, w] or None
-        self._aux: list[torch.Tensor] = []  # u8 [h, w, C_i]
-        self._ref_w, self._ref_h = w, h
-        self._w, self._h = w, h             # current materialized size
-        # live map
-        self._state = None
-        self._cfg: EngineConfig | None = None
-        self._orientation = 0
-        self._vmaps: list[VMap] = []
+            self._C = c
+            # reference arrays, image orientation ([h, w] layout)
+            with annotate("carver.upload"):    # a copy
+                self._ref_img = torch.tensor(pixels, device=self.device)
+            count("bytes.h2d", pixels.nbytes)
+            self._ref_bias = None               # f32 [h, w] or None
+            self._ref_rig = None                # f32 [h, w] or None
+            self._aux: list[torch.Tensor] = []  # u8 [h, w, C_i]
+            self._ref_w, self._ref_h = w, h
+            self._w, self._h = w, h             # current materialized size
+            # live map
+            self._state = None
+            self._cfg: EngineConfig | None = None
+            self._orientation = 0
+            self._vmaps: list[VMap] = []
 
     # -- liblqr setters -----------------------------------------------------
 
@@ -143,10 +147,13 @@ class Carver:
         strength * factor/1000 to the energy bias of overlapping pixels
         (a preservation mask for factor > 0, a discard mask for < 0)."""
         self._flatten_if_carved()
-        # f32(factor/1000): the f64 quotient rounded once, as lqr_tpu does
-        add = self._place_mask(mask, x_off, y_off) * torch.tensor(
-            np.float32(float(factor) / 1000.0))
-        self._ref_bias = add if self._ref_bias is None else self._ref_bias + add
+        with annotate("carver.bias_add"):
+            # f32(factor/1000): the f64 quotient rounded once, as lqr_tpu
+            # does
+            add = self._place_mask(mask, x_off, y_off) * torch.tensor(
+                np.float32(float(factor) / 1000.0))
+            self._ref_bias = (add if self._ref_bias is None
+                              else self._ref_bias + add)
         self._drop_map()
 
     def rigmask_add(self, mask: np.ndarray, x_off: int = 0, y_off: int = 0):
@@ -162,9 +169,15 @@ class Carver:
         native codec (``codec.place_mask``, equal bit for bit to
         ``place_mask_numpy``) and copied to the device once. A failure of
         the native library raises: nothing falls back to NumPy."""
-        field = codec.place_mask(np.asarray(mask, np.uint8), self._ref_h,
-                                 self._ref_w, x_off, y_off)
-        return torch.from_numpy(field).to(self.device)
+        with annotate("carver.place_mask"):
+            with annotate("mask.host"):
+                field = codec.place_mask(np.asarray(mask, np.uint8),
+                                         self._ref_h, self._ref_w, x_off,
+                                         y_off)
+            with annotate("mask.copy"):
+                out = torch.from_numpy(field).to(self.device)
+        count("bytes.h2d", field.nbytes)
+        return out
 
     # -- aux carvers --------------------------------------------------------
 
@@ -183,6 +196,7 @@ class Carver:
                         h=self._ref_h))
         check_channels(a.shape[2], "aux carver")
         self._aux.append(torch.tensor(a, device=self.device))   # a copy
+        count("bytes.h2d", a.nbytes)
         self._drop_map()
 
     # -- map plumbing -------------------------------------------------------
@@ -207,36 +221,37 @@ class Carver:
 
     def _build_map(self, orientation: int):
         """Create a fresh MapState in the given orientation."""
-        H, W = self._local_dims(orientation)
-        img, bias, rig = self._ref_img, self._ref_bias, self._ref_rig
-        aux = list(self._aux)
-        if orientation == 1:
-            img = img.transpose(0, 1)
-            bias = None if bias is None else bias.transpose(0, 1)
-            rig = None if rig is None else rig.transpose(0, 1)
-            aux = [a.transpose(0, 1) for a in aux]
-        cfg = EngineConfig(
-            H=H, Wb=_bucket(W), C=self._C, delta_x=self.delta_x,
-            nrg=int(self.nrg), side_switch_freq=self.side_switch_freq,
-            aux_channels=tuple(a.shape[2] for a in aux),
-            has_bias=bias is not None,
-            has_rig=rig is not None or self.rigidity > 0,
-        )
-        rig_field = None
-        if cfg.has_rig:
-            # per-pixel rigidity = global rigidity x mask strength, or the
-            # global rigidity alone (SPEC.md §4)
-            rigidity = torch.tensor(np.float32(self.rigidity))
-            if rig is not None:
-                rig_field = rig * rigidity
-            else:
-                rig_field = torch.full((H, W), np.float32(self.rigidity),
-                                       dtype=torch.float32,
-                                       device=self.device)
-        self._state = init_state(cfg, img, bias=bias, rig=rig_field,
-                                 aux=aux, device=self.device)
-        self._cfg = cfg
-        self._orientation = orientation
+        with annotate("carver.build_map"):
+            H, W = self._local_dims(orientation)
+            img, bias, rig = self._ref_img, self._ref_bias, self._ref_rig
+            aux = list(self._aux)
+            if orientation == 1:
+                img = img.transpose(0, 1)
+                bias = None if bias is None else bias.transpose(0, 1)
+                rig = None if rig is None else rig.transpose(0, 1)
+                aux = [a.transpose(0, 1) for a in aux]
+            cfg = EngineConfig(
+                H=H, Wb=_bucket(W), C=self._C, delta_x=self.delta_x,
+                nrg=int(self.nrg), side_switch_freq=self.side_switch_freq,
+                aux_channels=tuple(a.shape[2] for a in aux),
+                has_bias=bias is not None,
+                has_rig=rig is not None or self.rigidity > 0,
+            )
+            rig_field = None
+            if cfg.has_rig:
+                # per-pixel rigidity = global rigidity x mask strength, or
+                # the global rigidity alone (SPEC.md §4)
+                rigidity = torch.tensor(np.float32(self.rigidity))
+                if rig is not None:
+                    rig_field = rig * rigidity
+                else:
+                    rig_field = torch.full((H, W), np.float32(self.rigidity),
+                                           dtype=torch.float32,
+                                           device=self.device)
+            self._state = init_state(cfg, img, bias=bias, rig=rig_field,
+                                     aux=aux, device=self.device)
+            self._cfg = cfg
+            self._orientation = orientation
 
     def _ensure_map(self, orientation: int):
         if self._state is not None and self._orientation == orientation:
@@ -251,6 +266,7 @@ class Carver:
             return None
         H, W = self._local_dims(self._orientation)
         vs = self._state.vs[:, :W].cpu().numpy()
+        count("bytes.d2h", vs.nbytes)
         # a copy: the live map must not change with the caller's array
         vs = np.array(vs.T if self._orientation == 1 else vs)
         vm = VMap(data=vs, depth=self._state.depth, ref_w=self._ref_w,
@@ -327,30 +343,34 @@ class Carver:
         """lqr_carver_resize: carve/insert to (width, height), axes in
         res_order."""
         order = [0, 1] if self.res_order == ResizeOrder.HOR else [1, 0]
-        for orientation in order:
-            target = width if orientation == 0 else height
-            before = self._w if orientation == 0 else self._h
-            self._resize_axis(orientation, target)
-            if self.dump_vmaps and target != before:
-                self._record_vmap()
+        with annotate("carver.resize"):
+            for orientation in order:
+                target = width if orientation == 0 else height
+                before = self._w if orientation == 0 else self._h
+                self._resize_axis(orientation, target)
+                if self.dump_vmaps and target != before:
+                    self._record_vmap()
 
     def _materialize(self):
         """(img, bias, rig, aux list) at the current size, image
         orientation, each cut to the current width; bias/rig are None when
         absent. Without a live map: the reference arrays."""
-        st, cfg = self._state, self._cfg
-        if st is None:
-            return self._ref_img, self._ref_bias, self._ref_rig, list(self._aux)
-        w_local = self._w if self._orientation == 0 else self._h
-        out_Wb = _bucket(max(w_local, st.ref_w))
-        img, bias, rig, aux = eng.materialize_all(cfg, st, w_local, out_Wb)
-        planes = [img, bias, rig, *aux]
-        planes = [None if p is None else p[:, :w_local] for p in planes]
-        if self._orientation == 1:
-            planes = [None if p is None else p.transpose(0, 1)
-                      for p in planes]
-        img, bias, rig, *aux = planes
-        return img.contiguous(), bias, rig, aux
+        with annotate("carver.materialize"):
+            st, cfg = self._state, self._cfg
+            if st is None:
+                return (self._ref_img, self._ref_bias, self._ref_rig,
+                        list(self._aux))
+            w_local = self._w if self._orientation == 0 else self._h
+            out_Wb = _bucket(max(w_local, st.ref_w))
+            img, bias, rig, aux = eng.materialize_all(cfg, st, w_local,
+                                                      out_Wb)
+            planes = [img, bias, rig, *aux]
+            planes = [None if p is None else p[:, :w_local] for p in planes]
+            if self._orientation == 1:
+                planes = [None if p is None else p.transpose(0, 1)
+                          for p in planes]
+            img, bias, rig, *aux = planes
+            return img.contiguous(), bias, rig, aux
 
     def flatten(self):
         """lqr_carver_flatten: the current size becomes the new reference."""
@@ -372,7 +392,13 @@ class Carver:
 
     def get_image(self) -> np.ndarray:
         """Current materialized image, [h, w, C] uint8, image orientation."""
-        return self.get_image_device().cpu().numpy().copy()   # never a view
+        with annotate("carver.get_image"):
+            img = self.get_image_device()
+            with annotate("carver.copy_out"):
+                img = img.cpu()
+            count("bytes.d2h", img.nbytes)
+            with annotate("carver.host_copy"):
+                return img.numpy().copy()   # never a view
 
     def get_image_device(self) -> torch.Tensor:
         """Current materialized image as a tensor on the carver's device
@@ -385,7 +411,9 @@ class Carver:
     def get_aux(self, i: int) -> np.ndarray:
         """Current materialized aux image i (the identical seam sequence),
         [h, w, C_i] uint8, a host copy."""
-        return self._materialize()[3][i].cpu().numpy().copy()
+        aux = self._materialize()[3][i].cpu()
+        count("bytes.d2h", aux.nbytes)
+        return aux.numpy().copy()
 
     def vmap_dump(self) -> VMap | None:
         """lqr_vmap_dump: snapshot the current visibility map."""

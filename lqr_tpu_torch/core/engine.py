@@ -29,11 +29,14 @@ and a scatter, in place of the JAX engine's sort.
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 from .state import EngineConfig, MapState
 from .energy import energy_from_plane
 from ..ops import dp_cuda
+from ..profiling import annotate, count
 from ..ops.carve_resident import carve_chunk_resident, resident_ok
 
 # seams per resident chunk: one kernel launch and one vs scatter each
@@ -96,17 +99,21 @@ def _carve_once(cfg: EngineConfig, cur_b, cur_bias, cur_rig, posmap,
     version. h / rigc_vec: the true height and rigidity coefficients of a
     map padded to more rows (ragged batches; see core.dp)."""
     pl = pref_is_left(s, cfg.side_switch_freq)
-    e = total_energy(cur_b, cur_bias, w, cfg.nrg, cfg.has_bias, h=h)
-    seam = find_seam(e, cur_rig, pl, cfg.delta_x, cfg.has_rig, h=h,
-                     rigc_vec=rigc_vec)
-    compact = compactor(seam, w, cfg.Wb)
-    cur_b = compact(cur_b)
-    if cfg.has_bias:
-        cur_bias = compact(cur_bias)
-    if cfg.has_rig:
-        cur_rig = compact(cur_rig)
-    return (seam, cur_b, cur_bias, cur_rig,
-            None if posmap is None else compact(posmap))
+    with annotate("seam.energy"):
+        e = total_energy(cur_b, cur_bias, w, cfg.nrg, cfg.has_bias, h=h)
+    with annotate("seam.find"):
+        seam = find_seam(e, cur_rig, pl, cfg.delta_x, cfg.has_rig, h=h,
+                         rigc_vec=rigc_vec)
+    with annotate("seam.compact"):
+        compact = compactor(seam, w, cfg.Wb)
+        cur_b = compact(cur_b)
+        if cfg.has_bias:
+            cur_bias = compact(cur_bias)
+        if cfg.has_rig:
+            cur_rig = compact(cur_rig)
+        if posmap is not None:
+            posmap = compact(posmap)
+    return seam, cur_b, cur_bias, cur_rig, posmap
 
 
 def route(cfg: EngineConfig) -> str:
@@ -122,10 +129,20 @@ def extend_map(cfg: EngineConfig, st: MapState, k: int) -> MapState:
 
     The returned state owns a fresh ``vs`` (the input state is left
     unchanged); seams are written into it in place as they are found.
-    Both routes give the same state, bit for bit."""
-    if route(cfg) == "resident":
-        return _extend_resident(cfg, st, k)
-    return _extend_per_seam(cfg, st, k)
+    Both routes give the same state, bit for bit. Each call is the span
+    ``engine.<route>``, adds k to the counter ``seams.<route>`` and its
+    host time (issue, and any wait the route has) to ``route_ns.<route>``,
+    traced or not."""
+    name = route(cfg)
+    t0 = time.perf_counter_ns()
+    with annotate("engine." + name):
+        if name == "resident":
+            st = _extend_resident(cfg, st, k)
+        else:
+            st = _extend_per_seam(cfg, st, k)
+    count("route_ns." + name, time.perf_counter_ns() - t0)
+    count("seams." + name, int(k))
+    return st
 
 
 def _commit_ref_hist(vs: torch.Tensor, d0: int, kc: int,
@@ -147,11 +164,13 @@ def _extend_resident(cfg: EngineConfig, st: MapState, k: int) -> MapState:
     depth, done = st.depth, 0
     while done < k:
         kc = min(KC, k - done)
-        hist, cur_b, cur_bias, cur_rig, posmap = carve_chunk_resident(
-            cur_b, cur_bias, cur_rig, posmap, st.ref_w - depth, depth, kc,
-            cfg.delta_x, cfg.has_bias, cfg.has_rig, cfg.nrg,
-            cfg.side_switch_freq, KC)
-        _commit_ref_hist(vs, depth, kc, hist)
+        with annotate("resident.chunk"):
+            hist, cur_b, cur_bias, cur_rig, posmap = carve_chunk_resident(
+                cur_b, cur_bias, cur_rig, posmap, st.ref_w - depth, depth,
+                kc, cfg.delta_x, cfg.has_bias, cfg.has_rig, cfg.nrg,
+                cfg.side_switch_freq, KC)
+        with annotate("resident.commit"):
+            _commit_ref_hist(vs, depth, kc, hist)
         depth += kc
         done += kc
     return st._replace(vs=vs, cur_b=cur_b, cur_bias=cur_bias,
@@ -168,11 +187,13 @@ def _extend_per_seam(cfg: EngineConfig, st: MapState, k: int, h=None,
     depth = st.depth
     for _ in range(int(k)):
         s = depth + 1
-        seam, cur_b, cur_bias, cur_rig, pm_next = _carve_once(
-            cfg, cur_b, cur_bias, cur_rig, posmap, st.ref_w - depth, s,
-            h=h, rigc_vec=rigc_vec)
-        ref_col = posmap.gather(1, seam[:, None].long()).long()
-        vs.scatter_(1, ref_col, s)
+        with annotate("engine.seam"):
+            seam, cur_b, cur_bias, cur_rig, pm_next = _carve_once(
+                cfg, cur_b, cur_bias, cur_rig, posmap, st.ref_w - depth, s,
+                h=h, rigc_vec=rigc_vec)
+            with annotate("seam.commit"):
+                ref_col = posmap.gather(1, seam[:, None].long()).long()
+                vs.scatter_(1, ref_col, s)
         posmap = pm_next
         depth = s
     return st._replace(vs=vs, cur_b=cur_b, cur_bias=cur_bias,

@@ -17,8 +17,11 @@ import ctypes
 import os
 import pathlib
 import subprocess
+import time
 
 import numpy as np
+
+from . import profiling
 
 _PKG = pathlib.Path(__file__).resolve().parent
 _SRC = _PKG.parent / "native" / "lqr_ref.cpp"
@@ -28,9 +31,13 @@ _lib = None
 
 
 def _load():
+    """The reference carver's library, built by g++ if missing or stale;
+    the first call's seconds, a build included, go to
+    ``setup.native_s``."""
     global _lib
     if _lib is not None:
         return _lib
+    t0 = time.perf_counter()
     if not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
         _SO.parent.mkdir(parents=True, exist_ok=True)
         tmp = _SO.with_name(f"{_SO.name}.{os.getpid()}.tmp")
@@ -58,6 +65,7 @@ def _load():
     lib.lqr_ref_bench.restype = ctypes.c_double
     lib.lqr_ref_bench.argtypes = [u8p, i, i, i, i, i, i, i]
     _lib = lib
+    profiling.count("setup.native_s", time.perf_counter() - t0)
     return lib
 
 

@@ -17,6 +17,9 @@ import os
 import pathlib
 import shutil
 import subprocess
+import time
+
+from .. import profiling
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -93,10 +96,13 @@ def build(so: pathlib.Path = SO, flags: tuple = ()) -> pathlib.Path:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built if needed, with argtypes set."""
+    """The kernel library, built if needed, with argtypes set. The first
+    call's seconds, the build's included, go to ``setup.kernels_s``."""
     global _lib
     if _lib is None:
+        t0 = time.perf_counter()
         _lib = bind(ctypes.CDLL(str(build())))
+        profiling.count("setup.kernels_s", time.perf_counter() - t0)
     return _lib
 
 

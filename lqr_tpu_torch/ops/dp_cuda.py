@@ -10,7 +10,8 @@ fallback from a failed launch to the plain version.
 ``LAUNCHES`` counts successful kernel launches per kernel, so a run can show
 that its main path went through the kernels; it also counts the kernels of
 ``ops/carve_resident.py``, ``ops/dp_block.py`` (``dp_block`` and
-``dp_sharded``) and ``ops/carve_step.py``.
+``dp_sharded``) and ``ops/carve_step.py``. It is ``profiling.COUNTERS``'s
+group ``LAUNCHES``.
 
 The DP kernel runs warp strips with K-row halos over a thread-block cluster
 (``csrc/dp_forward.cu``); ``strip_geometry`` picks its blocks, warps, strip
@@ -28,11 +29,13 @@ import torch
 from ..core.dp import (dp_forward as dp_forward_plain,
                        backtrack as backtrack_plain,
                        find_seam as find_seam_plain, rigc_table)
+from .. import profiling
 from . import _build
 
-LAUNCHES = {"dp_forward": 0, "backtrack": 0, "carve_resident": 0,
-            "carve_resident_batched": 0, "dp_block": 0, "dp_sharded": 0,
-            "dp_energy_forward": 0, "backtrack_compact": 0}
+LAUNCHES = profiling.group("LAUNCHES", {
+    "dp_forward": 0, "backtrack": 0, "carve_resident": 0,
+    "carve_resident_batched": 0, "dp_block": 0, "dp_sharded": 0,
+    "dp_energy_forward": 0, "backtrack_compact": 0})
 
 __all__ = ["LAUNCHES", "dp_forward", "backtrack", "find_seam",
            "dp_forward_plain", "backtrack_plain", "find_seam_plain"]

@@ -37,6 +37,7 @@ from ..errors import LqrImageError
 from ..i18n import _
 from ..ops.carve_resident import (batched_resident_ok,
                                   carve_chunk_resident_batched)
+from ..profiling import annotate, count
 from .sharding import (extend_map_sharded, gather_state, map_data_shards,
                        shard_batch_state)
 
@@ -241,11 +242,15 @@ def extend_batched(cfg: EngineConfig, st: MapState, k, heights=None,
                    rigc=None) -> MapState:
     """Carve k[b] further seams into each map: the batched resident kernel
     where it admits the batch, else the per-seam kernels map by map. Both
-    equal extend_map_batched bit for bit."""
+    equal extend_map_batched bit for bit. Each call is the span
+    ``engine.<route>_batched``."""
     B, H, Wb = st.vs.shape
-    if batched_resident_ok(B, H, Wb, cfg.has_bias, cfg.has_rig):
-        return _extend_resident(cfg, st, k, heights, rigc)
-    return _extend_per_seam(cfg, st, k, heights, rigc)
+    name = ("resident" if batched_resident_ok(B, H, Wb, cfg.has_bias,
+                                              cfg.has_rig) else "per_seam")
+    with annotate(f"engine.{name}_batched"):
+        if name == "resident":
+            return _extend_resident(cfg, st, k, heights, rigc)
+        return _extend_per_seam(cfg, st, k, heights, rigc)
 
 
 def materialize_batched(cfg: EngineConfig, st: MapState, w,
@@ -306,93 +311,95 @@ class BatchCarver:
         ``images_at`` and ``aux_at`` are then collectives (every process
         calls them), the last three all-gathering the shards over the
         group."""
-        if len(images) == 0:
-            raise LqrImageError(_("BatchCarver needs at least one image"))
-        if isinstance(images, np.ndarray) and images.ndim == 4:
-            # a pre-stacked equal-size batch; a buffer already padded to
-            # the lane bucket is used as it is
-            if images.dtype != np.uint8:
-                raise LqrImageError(
-                    _("pre-stacked batch has dtype {dt}; expected uint8")
-                    .format(dt=images.dtype))
-            B, H, W, C = images.shape
-            Wb = max(128, round_up(W, 128))
-            if Wb == W:
-                buf = np.ascontiguousarray(images)
-            else:
-                buf = np.zeros((B, H, Wb, C), np.uint8)
-                buf[:, :, :W] = images
-            widths = np.full((B,), W, np.int64)
-            heights = np.full((B,), H, np.int64)
-        else:
-            C = images[0].shape[2] if images[0].ndim == 3 else 1
-            H = max(im.shape[0] for im in images)
-            Wmax = max(im.shape[1] for im in images)
-            Wb = max(128, round_up(Wmax, 128))
-            B = len(images)
-            buf = np.zeros((B, H, Wb, C), np.uint8)
-            widths = np.zeros((B,), np.int64)
-            heights = np.zeros((B,), np.int64)
-            for i, im in enumerate(images):
-                if im.ndim == 2:
-                    im = im[:, :, None]
-                if im.shape[2] != C:
+        with annotate("batch.stage"):
+            if len(images) == 0:
+                raise LqrImageError(_("BatchCarver needs at least one image"))
+            if isinstance(images, np.ndarray) and images.ndim == 4:
+                # a pre-stacked equal-size batch; a buffer already padded to
+                # the lane bucket is used as it is
+                if images.dtype != np.uint8:
                     raise LqrImageError(
-                        _("image {i} has {c} channels, batch has {C}")
-                        .format(i=i, c=im.shape[2], C=C))
-                h, w = im.shape[:2]
-                buf[i, :h, :w] = im
-                widths[i] = w
-                heights[i] = h
-
-        has_bias = biases is not None and any(b is not None for b in biases)
-        has_rig = (rigidity > 0
-                   or (rigmasks is not None
-                       and any(r is not None for r in rigmasks)))
-
-        def field(entries, fold_rigidity=False):
-            out = np.zeros((B, H, Wb), np.float32)
-            for i in range(B):
-                e = None if entries is None else entries[i]
-                h, w = heights[i], widths[i]
-                if e is not None:
-                    out[i, :h, :w] = np.asarray(e, np.float32)
-                    if fold_rigidity:
-                        out[i, :h, :w] *= np.float32(rigidity)
-                elif fold_rigidity and rigidity > 0:
-                    out[i, :h, :w] = np.float32(rigidity)
-            return out
-
-        bias_f = field(biases) if has_bias else None
-        # per-pixel rigidity = global rigidity x mask strength, or the
-        # global value alone where an image has no mask (SPEC.md §4)
-        rig_f = field(rigmasks, fold_rigidity=True) if has_rig else None
-
-        aux_planes, aux_channels = (), ()
-        if aux is not None and any(a for a in aux):
-            n_aux = len(aux[0])
-            if any(len(a) != n_aux for a in aux):
-                raise LqrImageError(
-                    _("every image must attach the same number of aux "
-                      "carvers"))
-            planes, chans = [], []
-            for j in range(n_aux):
-                cj = aux[0][j].shape[2] if aux[0][j].ndim == 3 else 1
-                pj = np.zeros((B, H, Wb, cj), np.uint8)
-                for i in range(B):
-                    a = np.asarray(aux[i][j], np.uint8)
-                    if a.ndim == 2:
-                        a = a[:, :, None]
-                    if a.shape[:2] != (heights[i], widths[i]):
+                        _("pre-stacked batch has dtype {dt}; expected uint8")
+                        .format(dt=images.dtype))
+                B, H, W, C = images.shape
+                Wb = max(128, round_up(W, 128))
+                if Wb == W:
+                    buf = np.ascontiguousarray(images)
+                else:
+                    buf = np.zeros((B, H, Wb, C), np.uint8)
+                    buf[:, :, :W] = images
+                widths = np.full((B,), W, np.int64)
+                heights = np.full((B,), H, np.int64)
+            else:
+                C = images[0].shape[2] if images[0].ndim == 3 else 1
+                H = max(im.shape[0] for im in images)
+                Wmax = max(im.shape[1] for im in images)
+                Wb = max(128, round_up(Wmax, 128))
+                B = len(images)
+                buf = np.zeros((B, H, Wb, C), np.uint8)
+                widths = np.zeros((B,), np.int64)
+                heights = np.zeros((B,), np.int64)
+                for i, im in enumerate(images):
+                    if im.ndim == 2:
+                        im = im[:, :, None]
+                    if im.shape[2] != C:
                         raise LqrImageError(
-                            _("aux {j} of image {i} is {aw}x{ah}, image "
-                              "is {w}x{h}")
-                            .format(j=j, i=i, aw=a.shape[1], ah=a.shape[0],
-                                    w=widths[i], h=heights[i]))
-                    pj[i, :heights[i], :widths[i]] = a
-                planes.append(pj)
-                chans.append(cj)
-            aux_planes, aux_channels = tuple(planes), tuple(chans)
+                            _("image {i} has {c} channels, batch has {C}")
+                            .format(i=i, c=im.shape[2], C=C))
+                    h, w = im.shape[:2]
+                    buf[i, :h, :w] = im
+                    widths[i] = w
+                    heights[i] = h
+
+            has_bias = (biases is not None
+                        and any(b is not None for b in biases))
+            has_rig = (rigidity > 0
+                       or (rigmasks is not None
+                           and any(r is not None for r in rigmasks)))
+
+            def field(entries, fold_rigidity=False):
+                out = np.zeros((B, H, Wb), np.float32)
+                for i in range(B):
+                    e = None if entries is None else entries[i]
+                    h, w = heights[i], widths[i]
+                    if e is not None:
+                        out[i, :h, :w] = np.asarray(e, np.float32)
+                        if fold_rigidity:
+                            out[i, :h, :w] *= np.float32(rigidity)
+                    elif fold_rigidity and rigidity > 0:
+                        out[i, :h, :w] = np.float32(rigidity)
+                return out
+
+            bias_f = field(biases) if has_bias else None
+            # per-pixel rigidity = global rigidity x mask strength, or the
+            # global value alone where an image has no mask (SPEC.md §4)
+            rig_f = field(rigmasks, fold_rigidity=True) if has_rig else None
+
+            aux_planes, aux_channels = (), ()
+            if aux is not None and any(a for a in aux):
+                n_aux = len(aux[0])
+                if any(len(a) != n_aux for a in aux):
+                    raise LqrImageError(
+                        _("every image must attach the same number of aux "
+                          "carvers"))
+                planes, chans = [], []
+                for j in range(n_aux):
+                    cj = aux[0][j].shape[2] if aux[0][j].ndim == 3 else 1
+                    pj = np.zeros((B, H, Wb, cj), np.uint8)
+                    for i in range(B):
+                        a = np.asarray(aux[i][j], np.uint8)
+                        if a.ndim == 2:
+                            a = a[:, :, None]
+                        if a.shape[:2] != (heights[i], widths[i]):
+                            raise LqrImageError(
+                                _("aux {j} of image {i} is {aw}x{ah}, image "
+                                  "is {w}x{h}")
+                                .format(j=j, i=i, aw=a.shape[1], ah=a.shape[0],
+                                        w=widths[i], h=heights[i]))
+                        pj[i, :heights[i], :widths[i]] = a
+                    planes.append(pj)
+                    chans.append(cj)
+                aux_planes, aux_channels = tuple(planes), tuple(chans)
 
         self.cfg = EngineConfig(H=H, Wb=Wb, C=C, delta_x=delta_x, nrg=nrg,
                                 has_bias=has_bias, has_rig=has_rig,
@@ -412,11 +419,15 @@ class BatchCarver:
         else:
             d, c = mesh.local_shards[0]
             dev = mesh.devices[d][c]
-        st = init_state_batched(self.cfg, buf, widths, bias=bias_f,
-                                rig=rig_f, aux=aux_planes, device=dev)
-        self._state = (st if mesh is None
-                       else shard_batch_state(st, mesh,
-                                              cols=self.col_sharded))
+        with annotate("batch.upload"):
+            st = init_state_batched(self.cfg, buf, widths, bias=bias_f,
+                                    rig=rig_f, aux=aux_planes, device=dev)
+            self._state = (st if mesh is None
+                           else shard_batch_state(st, mesh,
+                                                  cols=self.col_sharded))
+        count("bytes.h2d", sum(a.nbytes for a in (buf, bias_f, rig_f,
+                                                  *aux_planes)
+                               if a is not None))
 
     @property
     def state(self) -> MapState:
@@ -433,8 +444,9 @@ class BatchCarver:
         if self.mesh is None:
             self._state = extend_batched(self.cfg, self._state, n, heights)
         elif self.col_sharded:
-            self._state = extend_map_sharded(self.mesh, self.cfg,
-                                             self._state, n)
+            with annotate("engine.sharded"):
+                self._state = extend_map_sharded(self.mesh, self.cfg,
+                                                 self._state, n)
         else:
             self._state = map_data_shards(
                 self._state,
@@ -447,16 +459,24 @@ class BatchCarver:
         """Every image at the given widths (scalar or [B]): a list of
         [h_i, w_i, C] u8 arrays."""
         w = per_image(new_widths, len(self.widths))
-        out = materialize_batched(self.cfg, self.state, w,
-                                  self.cfg.Wb).cpu().numpy()
-        return [out[i, :self.heights[i], :w[i]] for i in range(len(w))]
+        with annotate("batch.images_at"):
+            with annotate("batch.materialize"):
+                out = materialize_batched(self.cfg, self.state, w,
+                                          self.cfg.Wb)
+            with annotate("batch.copy_out"):
+                out = out.cpu().numpy()
+            count("bytes.d2h", out.nbytes)
+            return [out[i, :self.heights[i], :w[i]] for i in range(len(w))]
 
     def aux_at(self, new_widths):
         """Every attached aux image at the given widths: a per-image list
         of per-aux lists (the same seams, lqr_carver_attach)."""
         w = per_image(new_widths, len(self.widths))
-        _img, aux = materialize_all_batched(self.cfg, self.state, w,
-                                            self.cfg.Wb)
-        aux = [a.cpu().numpy() for a in aux]
+        with annotate("batch.materialize"):
+            _img, aux = materialize_all_batched(self.cfg, self.state, w,
+                                                self.cfg.Wb)
+        with annotate("batch.copy_out"):
+            aux = [a.cpu().numpy() for a in aux]
+        count("bytes.d2h", sum(a.nbytes for a in aux))
         return [[a[i, :self.heights[i], :w[i]] for a in aux]
                 for i in range(len(w))]

@@ -85,6 +85,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import profiling
 from ..config import EnergyFunc
 from ..core import engine as eng
 from ..core.energy import (_f32, energy_from_gx, energy_from_plane,
@@ -110,14 +111,19 @@ INF = float("inf")
 # backtrack's inputs, the seam, the commit's row counts; across processes
 # an all-gather over the row, one message of each process) and "process"
 # (an all-gather over a mesh's process group).
-EXCHANGES = {"halo": 0, "gather": 0, "process": 0}
+# Each of these four is a group of profiling.COUNTERS under its own name.
+EXCHANGES = profiling.group("EXCHANGES", {"halo": 0, "gather": 0,
+                                          "process": 0})
 # Seconds in the messages between the processes of a mesh row, by kind
-EXCHANGE_SECONDS = {"halo": 0.0, "gather": 0.0, "process": 0.0}
+EXCHANGE_SECONDS = profiling.group("EXCHANGE_SECONDS", {
+    "halo": 0.0, "gather": 0.0, "process": 0.0})
 # Copies between a CUDA device and the host that carry the messages, by kind
-HOST_COPIES = {"halo": 0, "gather": 0, "process": 0}
+HOST_COPIES = profiling.group("HOST_COPIES", {"halo": 0, "gather": 0,
+                                              "process": 0})
 # Messages of the shards' data over a mesh's process group, by kind (not
 # the row's check of its steps, nor a mailbox's handles)
-GLOO_MESSAGES = {"halo": 0, "gather": 0, "process": 0}
+GLOO_MESSAGES = profiling.group("GLOO_MESSAGES", {"halo": 0, "gather": 0,
+                                                  "process": 0})
 # The carriers of a mesh over processes
 TRANSPORTS = ("gloo", "mailbox")
 # A row's mailbox channels: the halo tags, then the row's gathers

@@ -20,9 +20,11 @@ import ctypes
 import os
 import pathlib
 import subprocess
+import time
 
 import numpy as np
 
+from .. import profiling
 from ..errors import LqrImageError
 from ..i18n import _
 
@@ -39,9 +41,12 @@ class NativeCodecError(LqrImageError):
 
 
 def _load():
+    """The codec's library, built by g++ if missing or stale; the
+    first call's seconds, a build included, go to ``setup.native_s``."""
     global _lib
     if _lib is not None:
         return _lib
+    t0 = time.perf_counter()
     if not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
         _SO.parent.mkdir(parents=True, exist_ok=True)
         tmp = _SO.with_name(f"{_SO.name}.{os.getpid()}.tmp")
@@ -84,6 +89,7 @@ def _load():
     lib.lqr_stage_wave.restype = None
     lib.lqr_stage_wave.argtypes = [u8p, i, i, i, ip, ip, i, u8p, i, i]
     _lib = lib
+    profiling.count("setup.native_s", time.perf_counter() - t0)
     return lib
 
 

@@ -117,6 +117,9 @@ BY_DESIGN = {
     "ops/tune.py:Tune": "ops/tune.py",
     "parallel/batch.py:extend_map_scan_pallas": "extend_map_scan_pallas",
     "profiling.py:Roofline.bound": "Roofline.bound",
+    "profiling.py:Stopwatch": "profiling.Stopwatch",
+    "profiling.py:Stopwatch.lap": "profiling.Stopwatch",
+    "profiling.py:Stopwatch.report": "profiling.Stopwatch",
 }
 
 
