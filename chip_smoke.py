@@ -29,8 +29,11 @@ Phases, one line each (any failure exits non-zero):
              with bias and rigidity, at
              the padded shapes of the batch paths below: four maps at
              360x640 (per-map width, seam count, one of them 0, and true
-             height), three at 480x640 and two at 1024x1024; and timed at
-             the cfg4 wave's shape (256 maps of 1024x1024, 8 seams).
+             height), three at 480x640 and two at 1024x1024; without
+             masks at the wave16 cell's shape (16 maps of 1024x1024, a
+             128-seam chunk, on clusters of 4 blocks a map, timed there);
+             and timed at the cfg4 wave's shape (256 maps of 1024x1024, 8
+             seams).
              dp_block: R=32 rows over a shard of 512 columns extended by
              32*delta_x lanes each side (the card's shard of the
              distinct-device mesh below, timed there), delta_x 1 and 2,
@@ -198,6 +201,7 @@ RIGIDITY = 100.0      # cfg2's global rigidity
 CFG5 = (360, 640, 300, 160)   # (h, w) of a GAP frame, frames, last seams
 CFG4 = (1024, 1024, 256, 256)  # (h, w), images in one wave, seams each
 CFG4_KC = 8           # seams of phase 3's batched launch at the cfg4 shape
+WAVE16 = (1024, 1024, 16, 4)  # (h, w), maps, blocks a map on an H100
 SHARDS = 4            # column shards of the one card
 DISTINCT = (384, 1024)  # (h, w) on the card and the CPU, 2 column shards
 COLS_W = N // 2       # phase 10's shard width: N columns on 2 processes
@@ -1313,11 +1317,12 @@ def check_dp_sharded(device) -> dict:
     return {"err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-def _batched_case(device, sizes, kc, delta_x, rigidity, seed):
+def _batched_case(device, sizes, kc, delta_x, rigidity, seed, masks=True):
     """The batched resident entry and its plain version (the per-map loop of
     the resident kernel's plain version) on one batch of the given (h, w)
-    sizes with bias and rigidity, padded as BatchCarver pads it. Returns
-    (max_abs_err over hist and every plane, plain ms, the kernel's call)."""
+    sizes, with bias and rigidity masks (masks) or none, padded as
+    BatchCarver pads it. Returns (max_abs_err over hist and every plane,
+    plain ms, the kernel's call, the blocks a map it launched)."""
     import torch
     from lqr_tpu_torch.core import engine
     from lqr_tpu_torch.ops import carve_resident as cr
@@ -1325,38 +1330,44 @@ def _batched_case(device, sizes, kc, delta_x, rigidity, seed):
 
     rng = np.random.default_rng(seed)
     imgs = [crop_image(hw, seed=seed + i) for i, hw in enumerate(sizes)]
-    bc = batch.BatchCarver(
-        imgs, delta_x=delta_x, rigidity=rigidity, device=device,
+    kw = dict(
         biases=[np.round(rng.standard_normal(hw) * 4).astype(np.float32) / 8
                 for hw in sizes],
-        rigmasks=[rng.random(hw).astype(np.float32) for hw in sizes])
+        rigmasks=[rng.random(hw).astype(np.float32) for hw in sizes]
+    ) if masks else {}
+    bc = batch.BatchCarver(imgs, delta_x=delta_x, rigidity=rigidity,
+                           device=device, **kw)
     st = bc.state
     B, H, Wb = st.vs.shape
     pm = batch._posmap_batched(st.vs, st.ref_w)
     rigc = torch.from_numpy(batch.rigc_table(bc.heights, delta_x)).to(device)
     d0 = [0] * B
     args = (st.cur_b, st.cur_bias, st.cur_rig, pm, bc.widths, d0, kc,
-            bc.heights, rigc, delta_x, True, True, 0, 2, engine.KC)
+            bc.heights, rigc, delta_x, masks, masks, 0, 2, engine.KC)
+    before = dict(cr.BATCH_BLOCKS)
     got = cr.carve_chunk_resident_batched(*args)
+    blocks = [int(n) for n, c in cr.BATCH_BLOCKS.items() if c != before[n]]
     params = cr._batched_params(B, H, Wb, bc.widths, d0, kc, bc.heights,
                                 engine.KC)
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
     want = cr.carve_chunk_resident_batched_plain(
-        st.cur_b, st.cur_bias, st.cur_rig, pm, params, rigc, delta_x, True,
-        True, 0, 2, engine.KC)
+        st.cur_b, st.cur_bias, st.cur_rig, pm, params, rigc, delta_x, masks,
+        masks, 0, 2, engine.KC)
     t1.record()
     torch.cuda.synchronize()
-    err = max(_max_err(g, w) for g, w in zip(got, want))
+    err = max(_max_err(g, w) for g, w in zip(got, want)
+              if g is not None)
     say("kernels", f"carve_resident_batched B={B} H={H} Wb={Wb} heights="
         f"{bc.heights.tolist()} widths={bc.widths.tolist()} kc={kc} "
-        f"delta_x={delta_x} bias+rig: max_abs_err={err} (tolerance 0)")
+        f"delta_x={delta_x} {'bias+rig' if masks else 'no masks'}, blocks "
+        f"a map {blocks}: max_abs_err={err} (tolerance 0)")
     if err != 0.0:
         raise AssertionError(f"carve_resident_batched differs from plain at "
                              f"B={B} H={H} Wb={Wb}")
     return err, t0.elapsed_time(t1), (
-        lambda: cr.carve_chunk_resident_batched(*args))
+        lambda: cr.carve_chunk_resident_batched(*args)), blocks
 
 
 def check_resident_batched(device) -> dict:
@@ -1365,9 +1376,12 @@ def check_resident_batched(device) -> dict:
     of four maps padded to cfg5's 360x640 (per-map width, seam count, one
     of them 0, and true height; delta_x=2); three maps padded to the ragged
     phase's 480x640; two maps at the cfg4 wave's 1024x1024 (1024 threads a
-    block)."""
+    block); and, without masks, the wave16 cell's 16 maps of 1024x1024 and
+    128-seam chunk, which must launch WAVE16's clusters of 4 blocks a map
+    (the card holds 15 clusters of 8, 30 of 4; timed there)."""
+    from lqr_tpu_torch.core import engine
     kc = [32, 0, 20, 25]
-    err, plain_ms, launch = _batched_case(
+    err, plain_ms, launch, _ = _batched_case(
         device, [(360, 640), (300, 600), (200, 500), (360, 620)], kc, 2,
         20.0, 0)
     ms = _cuda_ms(launch, 3)
@@ -1376,10 +1390,20 @@ def check_resident_batched(device) -> dict:
     for sizes, kcs, seed in (([(480, 600), (128, 640), (300, 256)],
                               [24, 12, 16], 10),
                              ([(1024, 1024)] * 2, [8, 6], 20)):
-        e, _, _ = _batched_case(device, sizes, kcs, 1, RIGIDITY, seed)
+        e, _, _, _ = _batched_case(device, sizes, kcs, 1, RIGIDITY, seed)
         err = max(err, e)
-    return {"err": err, "ms": ms, "plain_ms": plain_ms,
-            "cfg4": time_batched_cfg4(device)}
+    h, w, B, blocks = WAVE16
+    e, wave_plain_ms, wave, got = _batched_case(
+        device, [(h, w)] * B, [engine.KC] * B, 1, 0.0, 30, masks=False)
+    if got != [blocks]:
+        raise AssertionError(f"carve_resident_batched at the wave16 shape "
+                             f"launched {got} blocks a map, not {blocks}")
+    wave_ms = _cuda_ms(wave, 3)
+    say("kernels", f"carve_resident_batched at the wave16 shape ({B} maps "
+        f"of {w}x{h}, kc={engine.KC}, {blocks} blocks a map): kernel "
+        f"{wave_ms:.4f} ms, plain {wave_plain_ms:.4f} ms")
+    return {"err": max(err, e), "ms": ms, "plain_ms": plain_ms,
+            "cfg4": time_batched_cfg4(device), "wave16": wave_ms}
 
 
 def time_batched_cfg4(device) -> float:
@@ -1446,6 +1470,7 @@ def kernel_bounds(n: int) -> dict:
     batch = ((360, 640, 32), (300, 600, 0), (200, 500, 20), (360, 620, 25))
     R, We, We_c = 32, DISTINCT[1] // 2 + 2 * 32, COLS_W + 2 * 32
     c4_h, c4_w, c4_B, _ = CFG4
+    w16_h, w16_w, w16_B, _ = WAVE16
     wh, ww = WIDE_STEP
     per_res = _energy_ops(0, True) + _dp_ops(1, True)
     per_bat = _energy_ops(0, True) + _dp_ops(2, True)
@@ -1471,6 +1496,10 @@ def kernel_bounds(n: int) -> dict:
             c4_B * (2 * 2 * 4 * c4_h * c4_w + 4 * CFG4_KC * c4_h),
             c4_B * c4_h * (_energy_ops(0, False) + _dp_ops(1, False))
             * sum(c4_w - j for j in range(CFG4_KC))),
+        "carve_resident_batched wave16": _bound(
+            w16_B * (2 * 2 * 4 * w16_h * w16_w + 4 * 128 * w16_h),
+            w16_B * w16_h * (_energy_ops(0, False) + _dp_ops(1, False))
+            * sum(w16_w - j for j in range(128))),
         # the card's shard of the distinct-device mesh, one block of rows
         "dp_block": _bound(4 * R * We + 2 * 4 * We + R * We,
                            R * We * _dp_ops(1, False)),
@@ -2592,7 +2621,7 @@ def main() -> int:
         r = check(device)
         for key in ("err", "ms", "plain_ms"):
             k[key][kname] = r[key]
-        for cell in ("cfg2", "cfg4", "cols"):
+        for cell in ("cfg2", "cfg4", "wave16", "cols"):
             if cell in r:
                 k["ms"][f"{kname} {cell}"] = r[cell]
     r = check_carve_step(device, N)
@@ -2672,6 +2701,8 @@ def main() -> int:
                                             f"({N}x{N}, {SEAMS} seams)"),
                          ("carve_resident cfg2", "cfg2's 128-seam chunk"),
                          ("carve_resident_batched cfg4", "the cfg4 shape"),
+                         ("carve_resident_batched wave16",
+                          "the wave16 shape"),
                          ("dp_energy_forward wide",
                           "x".join(map(str, WIDE_STEP))),
                          ("backtrack_compact masks",

@@ -38,11 +38,20 @@
 // x >= w0, as kc per-seam steps leave it.
 //
 // Design: one thread-block cluster per map, persistent across the chunk
-// (the solo entry: 8 blocks of 8 warps; the batched entry: one block of 4
-// warps per map, so that a wave of 256 maps is in flight at once, two
-// blocks an SM). The planes (row stride Wp, a multiple of 4, 16-byte
-// aligned) stay in global memory. Each seam is four phases, each ended by a
-// cluster barrier:
+// (the solo entry: 8 blocks of 8 warps). The batched entry's cluster is
+// chosen per launch from the batch (ops/carve_resident.py:batch_cluster):
+// the most warps a map, 8, 4 or 2 blocks of 8 warps or 2 of 4, of which
+// the card holds all B clusters at once (lqr_resident_clusters asks it),
+// so that a small batch's maps each run their energy pass and compaction
+// over several SMs; a batch too large for any (a wave of 256 maps) keeps
+// one block of 4 warps per map, all in flight at once, two blocks an SM.
+// The kernel finds its map as blockIdx.x / csize whatever the cluster. At
+// 255 registers a thread an SM holds one block of 8 warps (15 clusters of
+// 8 on an H100); capped at 128 for two (__launch_bounds__(256, 2)) the
+// kernel spills ~1 KB a thread and took 1.7-2.3 times as long on an H100
+// (the solo 2048x2048 chunk, 16 maps of 1024x1024). The planes (row
+// stride Wp, a multiple of 4, 16-byte aligned) stay in global memory. Each
+// seam is four phases, each ended by a cluster barrier:
 //
 //   - the energy pass: every warp of the cluster takes rows x 128-column
 //     segments, 4 columns a lane (16-byte loads; the lane's x neighbours by
@@ -451,53 +460,79 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// Check the chunk and its geometry, size the shared memory and launch
-// `maps` clusters of csize blocks of nwarps warps.
-int launch(Chunk c, int maps, int csize, int nwarps, cudaStream_t stream) {
-  const int nstrips = c.S > 0 ? (c.Wp + c.S - 1) / c.S : 0;
-  if (c.H < 1 || c.Wp < 4 || c.Wp % 4 != 0 || c.KC < 1 || c.delta < 0 ||
-      c.delta > kMaxDelta || c.nrg < 0 || c.nrg > 6 || maps < 1)
-    return (int)cudaErrorInvalidValue;
-  if (c.S <= 0 || c.S % 16 != 0 || c.S + 2 * c.G != kWin || c.K < 1 ||
-      (long long)c.delta * c.K > c.G || c.warps < 1 || c.warps > nwarps ||
-      nwarps * 32 > kMaxThreads || c.warps > nstrips || c.ctas < 1 ||
-      c.ctas > csize || csize > kMaxCtas || c.ctas > nstrips)
-    return (int)cudaErrorInvalidValue;
-  if (!aligned16(c.b) || !aligned16(c.pm) || !aligned16(c.e) ||
-      (c.bias && !aligned16(c.bias)) || (c.rig && !aligned16(c.rig)))
-    return (int)cudaErrorInvalidValue;
+// Whether the kernel takes a geometry: a cluster of csize blocks of nwarps
+// warps over planes of Wp columns, the DP's strips (ctas, warps, S, G, K)
+bool geometry_ok(int Wp, int delta, int csize, int nwarps, int ctas,
+                 int warps, int S, int G, int K) {
+  if (Wp < 4 || Wp % 4 != 0 || delta < 0 || delta > kMaxDelta || S <= 0)
+    return false;
+  const int nstrips = (Wp + S - 1) / S;
+  return S % 16 == 0 && S + 2 * G == kWin && K >= 1 &&
+         (long long)delta * K <= G && warps >= 1 && warps <= nwarps &&
+         nwarps * 32 <= kMaxThreads && warps <= nstrips && ctas >= 1 &&
+         ctas <= csize && csize <= kMaxCtas && ctas <= nstrips;
+}
+
+// The kernel variant of a geometry and its blocks' dynamic shared memory
+// (the DP warps' rings, the frontier pair, M_last), with the attribute that
+// admits that much set: 0, or a cudaError_t (cleared).
+int configure(int Wp, int delta, bool rig, int ctas, int warps, int S,
+              Kernel* kern, size_t* smem) {
   const int optin = lqr_smem_optin();
   if (optin < 0) return -optin;
-  const bool has_rig = c.rig != nullptr;
-  const size_t smem =
-      (size_t)c.warps * kWarpRing + (size_t)3 * c.Wp * sizeof(float);
-  Kernel kern = kernel_for(c.delta, has_rig, c.ctas * c.warps == nstrips);
+  *kern = kernel_for(delta, rig, ctas * warps == (Wp + S - 1) / S);
+  *smem = (size_t)warps * kWarpRing + (size_t)3 * Wp * sizeof(float);
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kern);
-  if (err == cudaSuccess && smem + attr.sharedSizeBytes > (size_t)optin)
+  cudaError_t err = cudaFuncGetAttributes(&attr, *kern);
+  if (err == cudaSuccess && *smem + attr.sharedSizeBytes > (size_t)optin)
     err = cudaErrorInvalidValue;
   if (err == cudaSuccess &&
-      smem + attr.sharedSizeBytes > (size_t)kDefaultSmem)
-    err = cudaFuncSetAttribute(kern,
+      *smem + attr.sharedSizeBytes > (size_t)kDefaultSmem)
+    err = cudaFuncSetAttribute(*kern,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return (int)err;
-  }
+                               (int)*smem);
+  if (err != cudaSuccess) cudaGetLastError();
+  return (int)err;
+}
+
+// The launch of `maps` clusters of csize blocks of nwarps warps; `at`
+// holds its cluster attribute.
+cudaLaunchConfig_t cluster_config(int maps, int csize, int nwarps,
+                                  size_t smem, cudaStream_t stream,
+                                  cudaLaunchAttribute* at) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(maps * csize);
   cfg.blockDim = dim3(nwarps * 32);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cudaLaunchAttribute at[1];
   at[0].id = cudaLaunchAttributeClusterDimension;
   at[0].val.clusterDim.x = csize;
   at[0].val.clusterDim.y = 1;
   at[0].val.clusterDim.z = 1;
   cfg.attrs = at;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kern, c);
+  return cfg;
+}
+
+// Check the chunk and its geometry, size the shared memory and launch
+// `maps` clusters of csize blocks of nwarps warps.
+int launch(Chunk c, int maps, int csize, int nwarps, cudaStream_t stream) {
+  if (c.H < 1 || c.KC < 1 || c.nrg < 0 || c.nrg > 6 || maps < 1 ||
+      !geometry_ok(c.Wp, c.delta, csize, nwarps, c.ctas, c.warps, c.S, c.G,
+                   c.K))
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16(c.b) || !aligned16(c.pm) || !aligned16(c.e) ||
+      (c.bias && !aligned16(c.bias)) || (c.rig && !aligned16(c.rig)))
+    return (int)cudaErrorInvalidValue;
+  Kernel kern;
+  size_t smem;
+  const int rc = configure(c.Wp, c.delta, c.rig != nullptr, c.ctas, c.warps,
+                           c.S, &kern, &smem);
+  if (rc != 0) return rc;
+  cudaLaunchAttribute at[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config(maps, csize, nwarps, smem, stream, at);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kern, c);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return (int)err;
@@ -514,7 +549,7 @@ extern "C" {
 // plane 16-byte aligned. e: [H, Wp] f32, bp: [H, Wp] int8 and seam: [H]
 // i32 scratch; hist: [KC, H] i32 out (rows >= kc set to -1); rigc:
 // [delta_x + 1] f32 on the device. csize, nwarps: a cluster of csize
-// (1..8) blocks of nwarps (<= 16) warps; ctas, warps, S, G, K: the DP's
+// (1..8) blocks of nwarps (<= 8) warps; ctas, warps, S, G, K: the DP's
 // strip geometry on the first ctas blocks' first warps warps (S a multiple
 // of 16, S + 2 G = 256, G >= delta_x * K). Launches on `stream` and
 // returns the launch's cudaError_t (0 on success), clearing it; a chunk or
@@ -547,6 +582,35 @@ int lqr_carve_resident_batched(float* b, float* bias, float* rig, int* pm,
   const Chunk c{b, bias, rig, pm, e, bp, seam, hist, rigc, params, H, Wp,
                 0, 0, 0, KC, delta_x, nrg, ssf, ctas, warps, S, G, K};
   return launch(c, B, csize, nwarps, (cudaStream_t)stream);
+}
+
+// The most clusters of csize blocks of nwarps warps that the current
+// device holds at once, for a chunk of Wp columns at the strip geometry
+// (ctas, warps, S, G, K), with a rigidity plane or without: the answer of
+// cudaOccupancyMaxActiveClusters for the kernel variant, the shared memory
+// and the cluster that such a launch uses; or a negative cudaError_t.
+// ops/carve_resident.py picks the batched entry's cluster by it.
+int lqr_resident_clusters(int Wp, int delta_x, int has_rig, int csize,
+                          int nwarps, int ctas, int warps, int S, int G,
+                          int K) {
+  if (!geometry_ok(Wp, delta_x, csize, nwarps, ctas, warps, S, G, K))
+    return -(int)cudaErrorInvalidValue;
+  Kernel kern;
+  size_t smem;
+  const int rc = configure(Wp, delta_x, has_rig != 0, ctas, warps, S, &kern,
+                           &smem);
+  if (rc != 0) return -rc;
+  cudaLaunchAttribute at[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config(1, csize, nwarps, smem, nullptr, at);
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(
+      &n, reinterpret_cast<const void*>(kern), &cfg);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -(int)err;
+  }
+  return n;
 }
 
 #ifdef LQR_RESIDENT_PHASES

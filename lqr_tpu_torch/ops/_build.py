@@ -132,6 +132,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lqr_carve_resident.argtypes = [p] * 9 + [i] * 16 + [p]
     lib.lqr_carve_resident_batched.restype = i
     lib.lqr_carve_resident_batched.argtypes = [p] * 10 + [i] * 14 + [p]
+    lib.lqr_resident_clusters.restype = i
+    lib.lqr_resident_clusters.argtypes = [i] * 10
     lib.lqr_dp_block.restype = i
     lib.lqr_dp_block.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p, p]
     lib.lqr_dp_sharded.restype = i

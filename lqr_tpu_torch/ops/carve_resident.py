@@ -33,9 +33,8 @@ per-seam route. The TPU's criteria (H % CH, the 14 MB VMEM limit) are not
 carried over.
 
 ``carve_chunk_resident_batched`` carves one chunk for every map of a
-``[B, H, Wb]`` batch in one launch, one block of BATCH_WARPS warps per map
-(a wave of 256 maps in flight at once, two blocks an SM), each with its
-own ``w0``, ``d0``, ``kc``, true height ``h`` and row of a ``rigc [B,
+``[B, H, Wb]`` batch in one launch, one cluster per map, each with its own
+``w0``, ``d0``, ``kc``, true height ``h`` and row of a ``rigc [B,
 delta_x + 1]`` table (rows >= h of a padded map pass through, as in
 ``lqr_tpu.core.dp``). Its plain version is the loop over the maps of
 ``carve_chunk_resident_plain``. Its gate, ``batched_resident_ok``, is not
@@ -44,17 +43,39 @@ stream from device memory whatever their size, as they do on the per-seam
 route, which would carve the maps one at a time. So a batch of two or more
 maps takes the batched kernel whenever its columns fit the kernel (Wb <=
 MAX_WB); a batch of one keeps the solo gate.
+
+The batched entry's cluster follows the batch (``batch_cluster``): each
+map gets the first of BATCH_CLUSTERS, (blocks, warps a block) from the
+most warps a map down, of which the card holds all B clusters at once; the
+DP runs on ``strip_geometry``'s strips, as in the solo entry. The card says
+how many it holds (``resident_clusters``: cudaOccupancyMaxActiveClusters
+for the launch's kernel variant, shared memory and cluster, asked once per
+device, width, delta_x, rigidity flag and cluster). A batch too large for
+every such cluster (a wave of 256 maps) keeps one block of 4 warps per map
+(ONE_BLOCK), all in flight at once, two blocks an SM; a batch of one,
+under the solo gate, gets the solo entry's cluster. The list comes from
+tools/batch_clusters.py (NVIDIA H100 80GB HBM3, 700 W, 1024x1024 and
+640x360 maps, B from 2 to 256): the most warps a map won at every B where
+the card held them, and at equal warps fewer blocks of 8 warps won (4 x 8
+over 8 x 4, 2 x 8 over 4 x 4) but for one B within 2 %. The kernel's 255
+registers a thread hold an SM to one block of 8 warps, and 15 clusters of
+8 such blocks fit this card. ``BATCH_BLOCKS`` counts the batched launches
+by blocks a map (``profiling.COUNTERS``'s group ``BATCH_BLOCKS``).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from .. import profiling
 from ..core.state import EngineConfig
 from . import _build, dp_cuda
 
-__all__ = ["RESIDENT_BUDGET", "MAX_WB", "resident_bytes", "resident_ok",
-           "batched_resident_ok", "carve_chunk_resident",
+__all__ = ["RESIDENT_BUDGET", "MAX_WB", "BATCH_BLOCKS", "resident_bytes",
+           "resident_ok", "batched_resident_ok", "batch_cluster",
+           "resident_clusters", "carve_chunk_resident",
            "carve_chunk_resident_plain", "carve_chunk_resident_batched",
            "carve_chunk_resident_batched_plain"]
 
@@ -62,12 +83,18 @@ RESIDENT_BUDGET = 36 << 20      # bytes of planes: 2048 x 2048 x 9 B, the
                                 # largest map measured (see the module doc)
 MAX_WB = 8192                   # columns: the frontier pair and M_last
                                 # fit shared memory beside the rings
-# csrc/carve_resident.cu: the solo entry's cluster (blocks, warps a block)
-# and the batched entry's warps per map; the static shared memory beside
-# the dynamic (the chase's two windows and the warps' reduction slots)
+# csrc/carve_resident.cu's clusters, (blocks, warps a block): the solo
+# entry's; the batched entry's, most warps a map first, and its one block a
+# map; the static shared memory beside the dynamic (the chase's two windows
+# and the warps' reduction slots)
 SOLO_CLUSTER = (8, 8)
-BATCH_WARPS = 4
+BATCH_CLUSTERS = ((8, 8), (4, 8), (2, 8), (2, 4))
+ONE_BLOCK = (1, 4)
 STATIC_SMEM = 2 * 32 * 144 + 8 * 8
+
+# the batched entry's launches by blocks a map
+BATCH_BLOCKS = profiling.group("BATCH_BLOCKS",
+                               {"1": 0, "2": 0, "4": 0, "8": 0})
 
 
 def padded_width(Wb: int) -> int:
@@ -75,39 +102,69 @@ def padded_width(Wb: int) -> int:
     return -(-Wb // 4) * 4
 
 
-def resident_geometry(Wp: int, delta_x: int, batched: bool,
+def resident_geometry(Wp: int, delta_x: int, cluster=SOLO_CLUSTER,
                       max_warps: int = SOLO_CLUSTER[1]):
     """(csize, nwarps, ctas, warps, S, G, K) of the resident kernel for a
-    map of Wp columns: a cluster of csize blocks of nwarps warps, whose
-    first ctas blocks' first warps warps run the DP's strips (S kept
-    columns, G = (256 - S) / 2 halo columns, K rows between exchanges; see
-    dp_cuda.strip_geometry). The solo entry: SOLO_CLUSTER, and the strips
-    of strip_geometry with at most max_warps warps a block. The batched
-    entry: one block of BATCH_WARPS warps, the fewest strips a warp whose
-    halo is wide enough (G >= 8 * delta_x)."""
-    if not batched:
-        ctas, warps, S, G, K = dp_cuda.strip_geometry(Wp, delta_x, max_warps)
-        return (*SOLO_CLUSTER, ctas, warps, S, G, K)
+    map of Wp columns on a cluster of csize blocks of nwarps warps (cluster
+    = (csize, nwarps)), whose first ctas blocks' first warps warps run the
+    DP's strips (S kept columns, G = (256 - S) / 2 halo columns, K rows
+    between exchanges; see dp_cuda.strip_geometry). Two blocks or more (the
+    solo entry, the batched entry's wider clusters): the strips of
+    strip_geometry with at most min(nwarps, max_warps) warps a block, or
+    None where those strips need more than csize blocks. One block (the
+    batched entry's ONE_BLOCK): the fewest strips a warp whose halo is wide
+    enough (G >= 8 * delta_x)."""
+    csize, nwarps = cluster
+    if csize > 1:
+        ctas, warps, S, G, K = dp_cuda.strip_geometry(
+            Wp, delta_x, min(nwarps, max_warps))
+        if ctas > csize:
+            return None
+        return (csize, nwarps, ctas, warps, S, G, K)
     smax = dp_cuda.WINDOW - 16 * delta_x
     m = 1
-    while -(-Wp // (BATCH_WARPS * m * 16)) * 16 > smax:
+    while -(-Wp // (nwarps * m * 16)) * 16 > smax:
         m += 1
-    S = -(-Wp // (BATCH_WARPS * m * 16)) * 16
+    S = -(-Wp // (nwarps * m * 16)) * 16
     G = (dp_cuda.WINDOW - S) // 2
-    return (1, BATCH_WARPS, 1, min(BATCH_WARPS, -(-Wp // S)), S, G,
+    return (1, nwarps, 1, min(nwarps, -(-Wp // S)), S, G,
             G // delta_x if delta_x else 64)
 
 
-def _smem_bytes(Wp: int, warps: int) -> int:
-    """Dynamic shared memory of a block: the DP warps' rings, the frontier
-    pair and M_last."""
-    return warps * dp_cuda.WARP_RING + 3 * Wp * 4
-
-
-def _geometry(Wp: int, delta_x: int, batched: bool, device) -> tuple:
+def _geometry(Wp: int, delta_x: int, cluster, device):
     room = dp_cuda.smem_optin(device) - STATIC_SMEM - 3 * Wp * 4
-    return resident_geometry(Wp, delta_x, batched,
+    return resident_geometry(Wp, delta_x, cluster,
                              min(SOLO_CLUSTER[1], room // dp_cuda.WARP_RING))
+
+
+@functools.lru_cache(maxsize=64)
+def resident_clusters(device, Wp: int, delta_x: int, has_rig: bool,
+                      cluster) -> int:
+    """How many clusters of resident_geometry's geometry for Wp columns on
+    `cluster` = (blocks, warps a block) the CUDA device holds at once (0
+    where the DP's strips need more blocks):
+    cudaOccupancyMaxActiveClusters for the kernel variant, shared memory
+    and cluster a launch uses; asked once per argument set."""
+    geo = _geometry(Wp, delta_x, cluster, device)
+    if geo is None:
+        return 0
+    lib = _build.load()
+    with torch.cuda.device(device):
+        n = lib.lqr_resident_clusters(Wp, delta_x, int(has_rig), *geo)
+    if n < 0:
+        _build.check(lib, -n, "lqr_resident_clusters")
+    return n
+
+
+def batch_cluster(B: int, clusters):
+    """(blocks, warps a block) of each map in the batched entry's launch
+    for B maps: the first of BATCH_CLUSTERS of which the card holds all B
+    at once (clusters(cluster): resident_clusters at the batch's device,
+    Wp, delta_x and rigidity flag), else ONE_BLOCK."""
+    for cluster in BATCH_CLUSTERS:
+        if clusters(cluster) >= B:
+            return cluster
+    return ONE_BLOCK
 
 
 def resident_bytes(H: int, Wb: int, has_bias: bool, has_rig: bool) -> int:
@@ -177,7 +234,7 @@ def carve_chunk_resident(cur_b, cur_bias, cur_rig, posmap, w0: int, d0: int,
     lib = _build.load()
     dev = cur_b.device
     Wp = padded_width(Wb)
-    geo = _geometry(Wp, delta_x, False, dev)
+    geo = _geometry(Wp, delta_x, SOLO_CLUSTER, dev)
     # the kernel carves in place: it works on (padded) copies
     b, pm = _padded(cur_b, Wp), _padded(posmap, Wp)
     bias = _padded(cur_bias, Wp) if has_bias else cur_bias
@@ -303,7 +360,8 @@ def carve_chunk_resident_batched(cur_b, cur_bias, cur_rig, posmap, w0, d0,
 
     lib = _build.load()
     Wp = padded_width(Wb)
-    geo = _geometry(Wp, delta_x, True, dev)
+    geo = _geometry(Wp, delta_x, batch_cluster(B, functools.partial(
+        resident_clusters, dev, Wp, delta_x, has_rig)), dev)
     b, pm = _padded(cur_b, Wp), _padded(posmap, Wp)
     bias = _padded(cur_bias, Wp) if has_bias else cur_bias
     rig = _padded(cur_rig, Wp) if has_rig else cur_rig
@@ -322,6 +380,7 @@ def carve_chunk_resident_batched(cur_b, cur_bias, cur_rig, posmap, w0, d0,
             delta_x, nrg, int(ssf), *geo, stream)
     _build.check(lib, rc, "lqr_carve_resident_batched")
     dp_cuda.LAUNCHES["carve_resident_batched"] += 1
+    BATCH_BLOCKS[str(geo[0])] += 1
     return (hist, _cut(b, Wb), _cut(bias, Wb) if has_bias else bias,
             _cut(rig, Wb) if has_rig else rig, _cut(pm, Wb))
 

@@ -18,9 +18,12 @@ Both functions that carve a batch give one result, bit for bit:
   once per chunk of KC (``engine._commit_hist``). It is the reference the
   routes below are held to.
 - ``extend_batched``, the route ``BatchCarver`` takes: chunks of KC seams,
-  each one launch of the batched resident kernel (one thread block per map)
-  where ``ops.carve_resident.batched_resident_ok`` admits the batch, else
-  the per-seam kernels map by map (``engine._extend_per_seam``). On CPU
+  each one launch of the batched resident kernel where
+  ``ops.carve_resident.batched_resident_ok`` admits the batch, else the
+  per-seam kernels map by map (``engine._extend_per_seam``). The launch
+  gives each map a thread-block cluster sized to the batch
+  (``ops.carve_resident.batch_cluster``): several SMs a map while the card
+  holds every map's cluster at once, one block a map past that. On CPU
   tensors both run their plain versions.
 """
 

@@ -10,6 +10,8 @@ with an NVIDIA GPU (no jax needed, so skip tests/conftest.py):
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -270,23 +272,46 @@ def test_resident_phases_build_matches_plain(cuda):
     assert sum(per) <= 1.25 * 1e3 * ms / kc
 
 
-def test_resident_batched_matches_plain(cuda):
-    """A ragged batch of four maps with bias and rigidity in one launch:
-    per-map w0, d0, kc (one of them 0) and true height."""
+def _fewest_maps_on(cluster, Wp, dx, has_rig, device):
+    """The fewest maps (2 to 1024) for which the batched entry puts each
+    map on `cluster` (blocks, warps a block) on this card, or None."""
+    clusters = functools.partial(carve_resident.resident_clusters, device,
+                                 Wp, dx, has_rig)
+    return next((B for B in range(2, 1025)
+                 if carve_resident.batch_cluster(B, clusters) == cluster),
+                None)
+
+
+@pytest.mark.parametrize("cluster", [*carve_resident.BATCH_CLUSTERS,
+                                     carve_resident.ONE_BLOCK])
+def test_resident_batched_matches_plain(cuda, cluster):
+    """A ragged batch with bias and rigidity in one launch: per-map w0, d0,
+    kc (0 for every fourth map) and true height (1 for every fourth), as
+    many maps as make the entry put each on `cluster` on this card
+    (ONE_BLOCK: more than the card holds at once of every wider cluster);
+    BATCH_BLOCKS records its blocks a map."""
     from lqr_tpu_torch.parallel.batch import rigc_table
-    B, H, W, Wb, dx = 4, 40, 250, 256, 2
-    maps = [_resident_planes(20 + i, H, W, Wb, cuda) for i in range(4)]
+    H, W, Wb, dx = 40, 250, 256, 2
+    B = _fewest_maps_on(cluster, Wb, dx, True, cuda)
+    if B is None:
+        pytest.skip(f"the batched entry puts no batch on {cluster} for "
+                    f"{Wb} columns on this card")
+    maps = [_resident_planes(20 + i, H, W, Wb, cuda) for i in range(B)]
     b, bias, rig, pm = (torch.stack(p) for p in zip(*maps))
-    heights = [40, 31, 12, 40]
+    # the first four maps as ever; the rest cycle them with fewer seams
+    heights = [(40, 31, 12, 1)[i % 4] for i in range(B)]
     for i, h in enumerate(heights):
         for plane in (b, bias, rig):
             plane[i, h:] = 0
-    w0, d0, kc = [241, 250, 200, 230], [9, 0, 50, 20], [23, 30, 0, 7]
+    w0 = [(241, 250, 200, 230)[i % 4] for i in range(B)]
+    d0 = [(9, 0, 50, 20)[i % 4] for i in range(B)]
+    kc = [(23, 30, 0, 7)[i % 4] // (1 if i < 4 else 6) for i in range(B)]
     rigc = torch.from_numpy(rigc_table(heights, dx)).to(cuda)
     for nrg in (0, 1):
         args = (b, bias, rig, pm, w0, d0, kc, heights, rigc, dx, True, True,
                 nrg, 2, engine.KC)
         before = dp_cuda.LAUNCHES["carve_resident_batched"]
+        blocks = dict(carve_resident.BATCH_BLOCKS)
         got = carve_resident.carve_chunk_resident_batched(*args)
         params = carve_resident._batched_params(B, H, Wb, w0, d0, kc,
                                                 heights, engine.KC)
@@ -295,6 +320,9 @@ def test_resident_batched_matches_plain(cuda):
             engine.KC)
         torch.cuda.synchronize()
         assert dp_cuda.LAUNCHES["carve_resident_batched"] == before + 1
+        assert {k: v - blocks[k] for k, v in
+                carve_resident.BATCH_BLOCKS.items()} == {
+            k: int(k == str(cluster[0])) for k in blocks}
         for g, e in zip(got, want):
             assert torch.equal(g, e), nrg
 

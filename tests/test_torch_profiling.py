@@ -21,7 +21,7 @@ from lqr_tpu_torch import BatchCarver, Carver, LqrConfigError
 from lqr_tpu_torch import native
 from lqr_tpu_torch import profiling as tprof
 from lqr_tpu_torch.core import engine
-from lqr_tpu_torch.ops import _build, dp_cuda
+from lqr_tpu_torch.ops import _build, carve_resident, dp_cuda
 from lqr_tpu_torch.parallel import batch, make_mesh, sharding
 from lqr_tpu_torch.utils import codec
 
@@ -321,6 +321,7 @@ def test_existing_counters_are_registered_groups():
     assert tprof.COUNTERS["HOST_COPIES"] is sharding.HOST_COPIES
     assert tprof.COUNTERS["EXCHANGE_SECONDS"] is sharding.EXCHANGE_SECONDS
     assert tprof.COUNTERS["GLOO_MESSAGES"] is sharding.GLOO_MESSAGES
+    assert tprof.COUNTERS["BATCH_BLOCKS"] is carve_resident.BATCH_BLOCKS
     snap = tprof.counters()
     assert snap["LAUNCHES.dp_forward"] == dp_cuda.LAUNCHES["dp_forward"]
     assert snap["EXCHANGES.halo"] == sharding.EXCHANGES["halo"]

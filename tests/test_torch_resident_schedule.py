@@ -18,6 +18,8 @@ the zeros at x >= w0 - kc. A halo too narrow for K rows lets the poison
 into the kept columns and fails the comparison.
 """
 
+import functools
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -202,8 +204,10 @@ def compact(planes, seam, w, warps=16, rows_at_once=2, group=256):
 
 
 def chunk_model(b, bias, rig, pm, w0, d0, kc, dx, nrg, ssf, KC, geo,
-                h=None, rigc=None):
-    """The kernel's chunk -> (hist [KC, H], b', bias', rig', pm')."""
+                h=None, rigc=None, threads=64, warps=16):
+    """The kernel's chunk -> (hist [KC, H], b', bias', rig', pm'): the DP's
+    window geo = (S, G, K), the start column over block 0's threads, the
+    compaction over the cluster's warps."""
     H, Wb = b.shape
     h = H if h is None else h
     rigc = (torch.from_numpy(tdp.rigc_table(dx, H)) if rigc is None
@@ -217,12 +221,13 @@ def chunk_model(b, bias, rig, pm, w0, d0, kc, dx, nrg, ssf, KC, geo,
         left = ssf <= 0 or ((s - 1) // ssf) % 2 == 0
         E = energy_plane(b, bias, w, h, nrg)
         M, bp = strip_dp(E, rig, h, left, dx, rigc, geo)
-        x = start_column(M, w, left)
+        x = start_column(M, w, left, threads)
         seam = torch.empty(H, dtype=torch.int32)
         seam[:h] = chase(bp, x)
         seam[h:] = x
         hist[j] = pm.gather(1, seam[:, None].long())[:, 0]
-        compact([p for p in (b, pm, bias, rig) if p is not None], seam, w)
+        compact([p for p in (b, pm, bias, rig) if p is not None], seam, w,
+                warps)
     keep = torch.arange(Wb)[None] < w0 - kc
     out = [torch.where(keep, p, 0) if p is not None else None
            for p in (b, bias, rig, pm)]
@@ -249,6 +254,13 @@ def _geo(dx, S=16):
     rows, the most the halo holds."""
     G = 8 * max(dx, 1)
     return S, G, G // dx if dx else 8
+
+
+def _kernel_geo(Wp, dx, cluster):
+    """chunk_model's geo, threads and warps at the kernel's geometry on
+    `cluster` (blocks, warps a block)."""
+    csize, nwarps, _, _, S, G, K = tcr.resident_geometry(Wp, dx, cluster)
+    return dict(geo=(S, G, K), threads=32 * nwarps, warps=csize * nwarps)
 
 
 def _assert_chunk(got, want, kc):
@@ -300,14 +312,26 @@ def test_model_flat_map_and_kc_zero(w0, d0, kc):
     _assert_chunk(got, want, kc)
 
 
-@pytest.mark.parametrize("nrg", [0, 2])
-def test_model_ragged_batch_matches_plain(nrg):
+@pytest.mark.parametrize("nrg,cluster", [
+    pytest.param(0, None, id="0"), pytest.param(2, None, id="2"),
+    pytest.param(0, (1, 4), id="0-1x4"), pytest.param(2, (2, 4), id="2-2x4"),
+    pytest.param(0, (2, 8), id="0-2x8"), pytest.param(2, (4, 8), id="2-4x8"),
+    pytest.param(0, (8, 8), id="0-8x8")])
+def test_model_ragged_batch_matches_plain(nrg, cluster):
     """Three maps padded to H rows (true heights H, H // 2 + 1 and 1), each
-    with its own rigidity coefficients, width, depth and seam count; rows
-    >= h carry the seam of row h - 1."""
+    with its own rigidity coefficients, width, depth and seam count (one of
+    them 0); rows >= h carry the seam of row h - 1. cluster None: a small
+    window on 40 columns; else the batched entry's geometry on `cluster`
+    (blocks, warps a block) for 256 columns."""
     from lqr_tpu_torch.parallel.batch import rigc_table
-    H, W, Wb, dx = 12, 37, 40, 2
-    heights, kcs, d0s, w0s = [12, 7, 1], [5, 0, 4], [0, 3, 9], [37, 35, 30]
+    H, dx = 12, 2
+    if cluster is None:
+        W, Wb, w0s = 37, 40, [37, 35, 30]
+        kw = dict(geo=_geo(dx))
+    else:
+        W, Wb, w0s = 250, 256, [250, 241, 200]
+        kw = _kernel_geo(Wb, dx, cluster)
+    heights, kcs, d0s = [12, 7, 1], [5, 0, 4], [0, 3, 9]
     maps = [_planes(40 + i, H, W, Wb, True) for i in range(3)]
     for (b, bias, rig, _), h in zip(maps, heights):
         for p in (b, bias, rig):
@@ -319,23 +343,30 @@ def test_model_ragged_batch_matches_plain(nrg):
         *stacked, params, rigc, dx, True, True, nrg, 2, 8)
     for i, (b, bias, rig, pm) in enumerate(maps):
         got = chunk_model(b, bias, rig, pm, w0s[i], d0s[i], kcs[i], dx, nrg,
-                          2, 8, _geo(dx), h=heights[i], rigc=rigc[i])
+                          2, 8, h=heights[i], rigc=rigc[i], **kw)
         _assert_chunk(got, [x[i] if x is not None else None for x in want],
                       kcs[i])
 
 
-@pytest.mark.parametrize("batched", [False, True])
-def test_model_at_kernel_geometry(batched):
-    """The geometry the wrapper launches (resident_geometry), with the
-    kernel's 256-column window, over several strips."""
+@pytest.mark.parametrize("cluster", [
+    pytest.param(tcr.SOLO_CLUSTER, id="False"),
+    pytest.param(tcr.ONE_BLOCK, id="True"),
+    *[pytest.param(c, id=f"True-{c[0]}x{c[1]}") for c in tcr.BATCH_CLUSTERS]])
+def test_model_at_kernel_geometry(cluster):
+    """The geometry the wrapper launches (resident_geometry): the solo
+    entry's cluster ("False") and each of the batched entry's (one block a
+    map, "True", and each wider cluster), with the kernel's 256-column
+    window over several strips, its block's threads and its cluster's
+    warps."""
     H, W, Wb, dx = 10, 590, 600, 1
     Wp = tcr.padded_width(Wb)
-    S, G, K = tcr.resident_geometry(Wp, dx, batched)[4:]
+    kw = _kernel_geo(Wp, dx, cluster)
+    S, G, _ = kw["geo"]
     assert S + 2 * G == 256 and -(-Wp // S) > 1
     b, bias, rig, pm = _planes(9, H, W, Wb, True)
     args = (b, bias, rig, pm, W, 0, 3, dx)
     want = tcr.carve_chunk_resident_plain(*args, True, True, 2, 1, 8)
-    got = chunk_model(*args, 2, 1, 8, (S, G, K))
+    got = chunk_model(*args, 2, 1, 8, **kw)
     _assert_chunk(got, want, 3)
 
 
@@ -350,6 +381,74 @@ def test_model_halo_one_row_too_narrow_fails(dx):
     S, G, K = _geo(dx)
     got = chunk_model(*args, 0, 1, 8, (S, G, K + 1))
     assert not torch.equal(got[1], want[1])
+
+
+# a stubbed card: the clusters of each (blocks, warps a block) it holds at
+# once for 1024 columns at delta_x 1 (an H100's answer)
+_HELD = {(8, 8): 15, (8, 4): 30, (4, 8): 30, (4, 4): 62, (2, 8): 66,
+         (2, 4): 132}
+
+
+@pytest.mark.parametrize("B,cluster", [
+    (1, (8, 8)), (2, (8, 8)), (15, (8, 8)), (16, (4, 8)), (17, (4, 8)),
+    (31, (2, 8)), (64, (2, 8)), (100, (2, 4)), (256, (1, 4))])
+def test_batch_cluster_rule(B, cluster):
+    """The cluster with the most warps a map that the card holds B of at
+    once, else one block of 4 warps a map; B = 1 runs under the solo gate
+    and gets the solo entry's geometry."""
+    assert tcr.batch_cluster(B, _HELD.get) == cluster
+    geo = tcr.resident_geometry(1024, 1, cluster)
+    if cluster == tcr.ONE_BLOCK:
+        assert geo == (1, 4, 1, 4, 128, 64, 64)
+    else:
+        assert geo == (*cluster, 2, 4, 128, 64, 64)
+    if B == 1:
+        assert geo == tcr.resident_geometry(1024, 1)
+        for H in (1024, 4096):
+            assert tcr.batched_resident_ok(1, H, 1024, True, True) == \
+                tcr.resident_ok(H, 1024, True, True)
+        assert not tcr.batched_resident_ok(1, 4096, 1024, True, True)
+    else:
+        assert tcr.batched_resident_ok(B, 4096, 1024, True, True)
+
+
+def test_batch_cluster_skips_a_cluster_too_narrow_for_the_strips():
+    """8192 columns need the DP on 8 blocks: no cluster of 4 or 2."""
+    assert tcr.resident_geometry(8192, 1, (8, 8))[:3] == (8, 8, 8)
+    for cluster in ((4, 8), (2, 8), (2, 4)):
+        assert tcr.resident_geometry(8192, 1, cluster) is None
+
+
+def test_resident_clusters_asks_the_card_once(monkeypatch):
+    """The occupancy query runs once per (device, Wp, delta_x, rigidity
+    flag, cluster), with the launch's geometry; a cluster too narrow for
+    the strips is never asked and holds none."""
+    import contextlib
+    asked = []
+
+    class Lib:
+        @staticmethod
+        def lqr_resident_clusters(*args):
+            asked.append(args)
+            return {8: 15, 4: 30, 2: 66}[args[3]]
+
+    dev = torch.device("cuda", 0)
+    monkeypatch.setattr(tcr._build, "load", lambda: Lib)
+    monkeypatch.setattr(tcr.dp_cuda, "smem_optin", lambda d: 232448)
+    monkeypatch.setattr(tcr.torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    tcr.resident_clusters.cache_clear()
+    try:
+        for _ in range(3):
+            assert tcr.resident_clusters(dev, 1024, 1, True, (4, 8)) == 30
+        assert tcr.resident_clusters(dev, 8192, 1, False, (2, 8)) == 0
+        assert tcr.batch_cluster(31, functools.partial(
+            tcr.resident_clusters, dev, 1024, 1, False)) == (2, 8)
+    finally:
+        tcr.resident_clusters.cache_clear()
+    assert asked[0] == (1024, 1, 1, 4, 8, 2, 4, 128, 64, 64)
+    assert [a[2:5] for a in asked] == [(1, 4, 8), (0, 8, 8), (0, 4, 8),
+                                       (0, 2, 8)]
 
 
 def test_start_column_and_chase_match_plain_backtrack():
@@ -395,7 +494,9 @@ def test_model_matches_jax_resident(monkeypatch, dx, nrg, batched):
     pm = teng._posmap_from_vs(t.vs, t.ref_w)
     got = chunk_model(t.cur_b, t.cur_bias, t.cur_rig, pm, Wb, 0, kc, dx,
                       nrg, jcfg.side_switch_freq, jeng.KC,
-                      tcr.resident_geometry(Wb, dx, batched)[4:])
+                      **_kernel_geo(Wb, dx,
+                                    tcr.ONE_BLOCK if batched
+                                    else tcr.SOLO_CLUSTER))
     np.testing.assert_array_equal(got[0][:kc].numpy(), np.asarray(jh)[:kc])
     for g, e in ((got[1], jb), (got[2], jbias), (got[3], jrig)):
         np.testing.assert_array_equal(g.numpy(), np.asarray(e))

@@ -10,8 +10,10 @@ energy pass, the DP, the start column and the chase, the record and the
 compaction (each up to the cluster barrier that ends it). Prints the
 microseconds per seam of each phase for the solo entry (cfg2's 128-seam
 chunk, cfg1's, a 2048x2048 chunk) and for the batched entry at the cfg4
-wave's shape (256 maps of 1024x1024, chip_smoke.CFG4_KC seams; map 0's
-block), with the launch's time beside them.
+wave's shape (256 maps of 1024x1024, chip_smoke.CFG4_KC seams) and at a
+wave of 16 such maps (a 128-seam chunk) at the cluster the entry picks and
+at one block a map (map 0's first block), with the launch's time beside
+them.
 """
 
 from __future__ import annotations
@@ -91,16 +93,29 @@ def main() -> int:
         report(f"solo {label}, {engine.KC} seams",
                lambda: cr.carve_chunk_resident(*args), engine.KC)
 
-    h, w, B, _ = smoke.CFG4
-    b = reader_plane(torch.from_numpy(smoke.make_test_image(w, seed=10)[:h])
-                     .to(dev), 0).expand(B, h, w).contiguous()
-    pm = torch.arange(w, dtype=torch.int32, device=dev).expand(
-        B, h, w).contiguous()
-    rigc = torch.zeros((B, 2), device=dev)
-    args = (b, None, None, pm, w, 0, smoke.CFG4_KC, h, rigc, 1, False, False,
-            0, 2, engine.KC)
-    report(f"batched {B} x {w}x{h}, {smoke.CFG4_KC} seams",
-           lambda: cr.carve_chunk_resident_batched(*args), smoke.CFG4_KC)
+    h, w, _, _ = smoke.CFG4
+    for B, kc, clusters in ((smoke.CFG4[2], smoke.CFG4_KC, (None,)),
+                            (16, engine.KC, (None, cr.ONE_BLOCK))):
+        b = reader_plane(torch.from_numpy(smoke.make_test_image(
+            w, seed=10)[:h]).to(dev), 0).expand(B, h, w).contiguous()
+        pm = torch.arange(w, dtype=torch.int32, device=dev).expand(
+            B, h, w).contiguous()
+        rigc = torch.zeros((B, 2), device=dev)
+        args = (b, None, None, pm, w, 0, kc, h, rigc, 1, False, False, 0, 2,
+                engine.KC)
+        for cluster in clusters:
+            pick = cr.batch_cluster
+            if cluster is not None:
+                cr.batch_cluster = lambda n, held: cluster
+            before = dict(cr.BATCH_BLOCKS)
+            try:
+                report(f"batched {B} x {w}x{h}, {kc} seams",
+                       lambda: cr.carve_chunk_resident_batched(*args), kc)
+            finally:
+                cr.batch_cluster = pick
+            print("  blocks a map: " + ", ".join(
+                k for k, v in cr.BATCH_BLOCKS.items() if v > before[k]),
+                flush=True)
     return 0
 
 
