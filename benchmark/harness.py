@@ -159,12 +159,15 @@ def _reservoir(kept: list, item, seen: int, k: int,
 def run_cell(*, bench: dict, workload: str, seed: int, seconds: float,
              trace: bool, device, t_start: float, root: pathlib.Path,
              folder: pathlib.Path = HERE, patch=None,
-             control=None) -> dict:
+             control=None, requests: int | None = None) -> dict:
     """One run of the cell; returns the result line's object.
 
     patch: a callable run after set-up and before the window (the tests'
     faults in the timed path); control: a dtype in which the plain
-    reference stands in for the program's answers (the control)."""
+    reference stands in for the program's answers (the control);
+    requests: the least number of requests the window starts before it
+    closes (the tests' fixed amount of work; the benchmark's runs close
+    the window by time alone)."""
     import torch
     cell = find_cell(bench, workload)
     config = find_config(bench, cell["config"], root)
@@ -192,7 +195,7 @@ def run_cell(*, bench: dict, workload: str, seed: int, seconds: float,
     rng = np.random.default_rng([seed % (1 << 63), 7])
     n_check = int(traffic["check_requests"])
     n_trace = int(traffic.get("trace_requests", 0))
-    kept, requests, failed = [], [], 0
+    kept, done_requests, failed = [], [], 0
     prof = None
     if trace:
         acts = [torch.profiler.ProfilerActivity.CPU]
@@ -202,7 +205,8 @@ def run_cell(*, bench: dict, workload: str, seed: int, seconds: float,
         prof.start()
     t0 = time.perf_counter()
     i = 0
-    while time.perf_counter() - t0 < seconds:
+    least = 0 if requests is None else int(requests)
+    while time.perf_counter() - t0 < seconds or i < least:
         start = time.perf_counter()
         try:
             done = client.request(i, spans)
@@ -213,8 +217,9 @@ def run_cell(*, bench: dict, workload: str, seed: int, seconds: float,
         end = time.perf_counter()
         if done is not None:
             seams, ops, nbytes, keep = done
-            requests.append(Request(i, seams, ops, nbytes, start, end))
-            _reservoir(kept, (i, keep), len(requests), n_check, rng)
+            done_requests.append(Request(i, seams, ops, nbytes, start,
+                                         end))
+            _reservoir(kept, (i, keep), len(done_requests), n_check, rng)
         i += 1
         if prof is not None and i == n_trace:
             prof.stop()
@@ -234,7 +239,7 @@ def run_cell(*, bench: dict, workload: str, seed: int, seconds: float,
               f"their launch; {len(tr.spans)} spans", file=sys.stderr)
 
     name = torch.cuda.get_device_name(device) if cuda else "cpu"
-    run = Run(setup_s, window_s, requests, spans.records, tr, name)
+    run = Run(setup_s, window_s, done_requests, spans.records, tr, name)
 
     # the check: the program's state is freed, then the reference runs
     frozen = [a for i, keep in kept for a in client.freeze(i, keep)]
@@ -244,10 +249,10 @@ def run_cell(*, bench: dict, workload: str, seed: int, seconds: float,
     t_check = time.perf_counter()
     numbers = compare.check(config, frozen, device, control)
     print(f"benchmark: {workload}: set-up {setup_s:.3f} s, window "
-          f"{window_s:.3f} s, {len(requests)} requests ({failed} failed), "
-          f"check of {len(frozen)} images {time.perf_counter() - t_check:.3f}"
-          " s", file=sys.stderr)
-    correct = (failed == 0 and len(requests) > 0
+          f"{window_s:.3f} s, {len(done_requests)} requests ({failed} "
+          f"failed), check of {len(frozen)} images "
+          f"{time.perf_counter() - t_check:.3f} s", file=sys.stderr)
+    correct = (failed == 0 and len(done_requests) > 0
                and compare.passes(numbers))
 
     kind = "per_layer" if trace else "end_to_end"
@@ -259,7 +264,8 @@ def run_cell(*, bench: dict, workload: str, seed: int, seconds: float,
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     dev = {"platform": "gpu" if cuda else "cpu", "kind": name, "count": 1,
            "memory_peak_bytes": int(memory_peak)}
-    out = {"correct": bool(correct), "attempted": len(requests) + failed,
+    out = {"correct": bool(correct),
+           "attempted": len(done_requests) + failed,
            "failed": failed, "metrics": metrics, "device": dev}
     if tr is not None and tr.spans:
         dev["busy_s"] = device_trace.busy_s(tr)

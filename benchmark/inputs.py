@@ -112,10 +112,12 @@ def rect_mask(r: np.random.Generator, h: int, w: int,
 SHAPES = {"ellipse": ellipse_mask, "rect": rect_mask}
 
 
-def masks(spec: list[dict], n: int, h: int, w: int,
-          seed: int) -> list[list[np.ndarray]]:
+def masks(spec: list[dict], n: int, h: int, w: int, seed: int,
+          stream: int = 3) -> list[list[np.ndarray]]:
     """For each of n requests, one [h, w] u8 mask per entry of `spec`
-    (each {"shape": "ellipse" | "rect", "area": [lo, hi], ...})."""
-    r = np.random.default_rng(seed64(seed, 3))
+    (each {"shape": "ellipse" | "rect", "area": [lo, hi], ...}), drawn
+    from the seed's stream `stream`: 3 for bias masks, 5 for rigidity
+    masks (the images take 1, 2 and 10 + k, the check's picks 4 and 7)."""
+    r = np.random.default_rng(seed64(seed, stream))
     return [[SHAPES[m["shape"]](r, h, w, tuple(m["area"])) for m in spec]
             for _ in range(n)]

@@ -1,5 +1,6 @@
 """mask_place_ms: the median a request of the host ms in the program's
-``carver.place_mask`` spans (``Carver.bias_add``'s placement of a mask on
+``carver.place_mask`` spans (the placement of each bias mask, by
+``Carver.bias_add``, and each rigidity mask, by ``Carver.rigmask_add``, on
 the host by ``codec.place_mask``, span ``mask.host``, and its copy to the
 card, ``mask.copy``)."""
 

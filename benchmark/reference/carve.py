@@ -197,3 +197,16 @@ def placed_bias(masks: list[tuple[torch.Tensor, float]]
         add = strength(px) * _f32(float(factor) / 1000.0, px)
         bias = add if bias is None else bias + add
     return bias
+
+
+def placed_rigidity(masks: list[torch.Tensor],
+                    rigidity: float) -> torch.Tensor:
+    """The per-pixel rigidity [h, w] f32 of rigidity masks, each a [h, w]
+    or [h, w, C] u8 plane at the image's origin: f32(rigidity) times the
+    sum, in the order given, of their strengths; 0 outside them (SPEC.md
+    §4, rigidity being R')."""
+    total = None
+    for m in masks:
+        s = strength(m if m.dim() == 3 else m[..., None])
+        total = s if total is None else total + s
+    return total * _f32(float(rigidity), total)

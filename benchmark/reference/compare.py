@@ -21,22 +21,39 @@ LIMITS = {"vs_mismatch": 0, "pixel_mismatch": 0}
 @dataclasses.dataclass
 class Answer:
     """One carved image of the window, on the host: its input, the masks
-    it was given (each a [H, W] u8 plane at the origin with its factor),
-    the seams asked for, and what the program gave back."""
+    it was given (each bias mask a [H, W] u8 plane at the origin with its
+    factor; each rigidity mask a [H, W] u8 plane at the origin), the seams
+    asked for, and what the program gave back."""
     image: np.ndarray                     # [H, W, C] u8
     masks: list[tuple[np.ndarray, float]]
     seams: int
     vs: np.ndarray                        # [H, W] i32, the program's map
     out: np.ndarray                       # [H, W - seams, C] u8
+    rigmasks: list[np.ndarray] = dataclasses.field(default_factory=list)
 
 
-def expected(config: dict, answers: list[Answer], device,
-             dtype=torch.float32) -> tuple[np.ndarray, np.ndarray]:
+def _rigidity(config: dict, a: Answer, device) -> torch.Tensor | None:
+    """The answer's per-pixel rigidity [H, W] f32: f32(R') times its
+    rigidity masks' summed strength where it has masks, else R' uniform,
+    else (R' = 0) none."""
+    if a.rigmasks:
+        return ref.placed_rigidity(
+            [torch.from_numpy(m).to(device) for m in a.rigmasks],
+            config["rigidity"])
+    if config["rigidity"] > 0:
+        H, W = a.image.shape[:2]
+        return torch.full((H, W), np.float32(config["rigidity"]),
+                          device=device)
+    return None
+
+
+def _expected_group(config: dict, answers: list[Answer], device,
+                    dtype) -> tuple[np.ndarray, np.ndarray]:
     """The reference's maps [n, H, W] and images [n, H, W - seams, C] for
-    the answers' inputs (one size and seam count), computed in dtype."""
+    answers of one size and one seam count."""
     seams = answers[0].seams
     images = torch.from_numpy(np.stack([a.image for a in answers])).to(device)
-    n, H, W, _ = images.shape
+    _, H, W, _ = images.shape
     bias = None
     if any(a.masks for a in answers):
         bias = torch.stack([
@@ -44,16 +61,35 @@ def expected(config: dict, answers: list[Answer], device,
                              for m, f in a.masks])
             if a.masks else torch.zeros((H, W), device=device)
             for a in answers])
+    rigs = [_rigidity(config, a, device) for a in answers]
     rig = None
-    if config["rigidity"] > 0:
-        rig = torch.full((n, H, W), np.float32(config["rigidity"]),
-                         device=device)
+    if any(r is not None for r in rigs):
+        rig = torch.stack([torch.zeros((H, W), device=device) if r is None
+                           else r for r in rigs])
     vs = ref.carve(images, seams, nrg=config["energy"],
                    delta_x=config["delta_x"],
                    side_switch_freq=config["side_switch_frequency"],
                    bias=bias, rig=rig, dtype=dtype)
     out = ref.materialize(images, vs, W - seams)
     return vs.cpu().numpy(), out.cpu().numpy()
+
+
+def expected(config: dict, answers: list[Answer], device,
+             dtype=torch.float32) -> tuple[list[np.ndarray], list[np.ndarray]]:
+    """The reference's map [H, W] and image [H, W - seams, C] of each
+    answer's input, in the answers' order, computed in dtype: one run of
+    the reference for each size and seam count among them."""
+    groups: dict[tuple, list[int]] = {}
+    for i, a in enumerate(answers):
+        groups.setdefault((*a.image.shape, a.seams), []).append(i)
+    vs: list = [None] * len(answers)
+    out: list = [None] * len(answers)
+    for idx in groups.values():
+        g_vs, g_out = _expected_group(config, [answers[i] for i in idx],
+                                      device, dtype)
+        for n, i in enumerate(idx):
+            vs[i], out[i] = g_vs[n], g_out[n]
+    return vs, out
 
 
 def _differ(a: np.ndarray, b: np.ndarray) -> int:

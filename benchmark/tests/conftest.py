@@ -33,6 +33,15 @@ TINY = {
         "driver": "batch", "clients": 1, "size": 32, "batch": 4,
         "seams": 8, "pool": 3, "check_requests": 2, "check_images": 2,
         "trace_requests": 2},
+    "plugin-1024x768-masks-rig-remove100": {
+        "driver": "carver", "clients": 1, "height": 24, "width": 40,
+        "seams": 7, "pool": 3,
+        "masks": [{"shape": "ellipse", "area": [0.10, 0.25],
+                   "coefficient": "pres_coefficient"},
+                  {"shape": "rect", "area": [0.02, 0.06],
+                   "coefficient": "disc_coefficient"}],
+        "rigmasks": [{"shape": "rect", "area": [0.20, 0.40]}],
+        "check_requests": 2, "trace_requests": 3},
 }
 
 
@@ -58,9 +67,9 @@ def run_tiny(bench, tmp_path):
     folder = tiny_folder(tmp_path / "bench")
 
     def run(workload: str, seed: int = 2**31 + 11, trace: bool = False,
-            device="cpu", **kw) -> dict:
+            device="cpu", seconds: float = 0.3, **kw) -> dict:
         return harness.run_cell(bench=bench, workload=workload, seed=seed,
-                                seconds=0.3, trace=trace, device=device,
+                                seconds=seconds, trace=trace, device=device,
                                 t_start=time.time(), root=ROOT,
                                 folder=folder, **kw)
     return run

@@ -52,15 +52,19 @@ def test_new_cell_from_new_files(tmp_path, bench):
          "moves": "image_ms_p95", "workloads": ["plugin-tiny-remove5"]})
     extended["end_to_end"][2]["workloads"].append("plugin-tiny-remove5")
     extended["per_layer"][0]["workloads"].append("plugin-tiny-remove5")
+    # four requests, whatever the window's time holds: the three traced
+    # ones and one after them
     out = harness.run_cell(bench=extended, workload="plugin-tiny-remove5",
-                           seed=5, seconds=0.3, trace=True, device="cpu",
-                           t_start=time.time(), root=ROOT, folder=folder)
+                           seed=5, seconds=0, trace=True, device="cpu",
+                           t_start=time.time(), root=ROOT, folder=folder,
+                           requests=4)
     assert out["correct"]
     assert out["metrics"]["requests_traced"]["value"] == 3.0
     assert "carver_host_ms" in out["metrics"]
     out = harness.run_cell(bench=extended, workload="plugin-tiny-remove5",
-                           seed=5, seconds=0.3, trace=False, device="cpu",
-                           t_start=time.time(), root=ROOT, folder=folder)
+                           seed=5, seconds=0, trace=False, device="cpu",
+                           t_start=time.time(), root=ROOT, folder=folder,
+                           requests=4)
     assert set(out["metrics"]) == {"setup_s", "seams_per_s", "image_ms_p95"}
 
 

@@ -2,14 +2,18 @@
 run of each tiny cell is correct; the control (the plain reference in
 bfloat16 in the program's place) is not, nor is a run whose timed path is
 broken underneath: a carve that leaves the state unchanged, half of a wave
-left out, an answer altered where it is produced."""
+left out, an answer altered where it is produced, a rigidity mask dropped
+or its field made uniform."""
 
 import numpy as np
 import pytest
 import torch
 
 CELLS = ("plugin-2048-remove100", "plugin-2048-bias-remove100",
-         "batch-1mp-wave256", "batch-1mp-wave16")
+         "batch-1mp-wave256", "batch-1mp-wave16",
+         "plugin-1024x768-masks-rig-remove100")
+BATCH_CELLS = ("batch-1mp-wave256", "batch-1mp-wave16")
+RIG_CELLS = ("plugin-1024x768-masks-rig-remove100",)
 
 
 @pytest.mark.parametrize("workload", CELLS)
@@ -41,7 +45,7 @@ def test_state_left_unchanged(run_tiny, monkeypatch, workload):
     assert not out["correct"]
 
 
-@pytest.mark.parametrize("workload", CELLS[2:])
+@pytest.mark.parametrize("workload", BATCH_CELLS)
 def test_half_the_wave_left_out(run_tiny, monkeypatch, workload):
     from lqr_tpu_torch.parallel import BatchCarver
     carve = BatchCarver.carve
@@ -51,9 +55,39 @@ def test_half_the_wave_left_out(run_tiny, monkeypatch, workload):
         counts[len(counts) // 2:] = 0
         return carve(self, counts)
 
-    out = run_tiny(workload, patch=lambda: monkeypatch.setattr(
-        BatchCarver, "carve", half))
+    # six waves, whatever the window's time holds: a fixed set of kept
+    # waves and picked images
+    out = run_tiny(workload, seconds=0, requests=6,
+                   patch=lambda: monkeypatch.setattr(BatchCarver, "carve",
+                                                     half))
     assert not out["correct"]
+
+
+@pytest.mark.parametrize("workload", RIG_CELLS)
+def test_rigidity_mask_dropped(run_tiny, monkeypatch, workload):
+    """The carver never given the rigidity mask: a uniform rigidity."""
+    from lqr_tpu_torch.carver import Carver
+    out = run_tiny(workload, patch=lambda: monkeypatch.setattr(
+        Carver, "rigmask_add", lambda self, *a, **kw: None))
+    assert not out["correct"]
+    assert out["checks"]["vs_mismatch"]["value"] > 0
+
+
+@pytest.mark.parametrize("workload", RIG_CELLS)
+def test_rigidity_made_uniform(run_tiny, monkeypatch, workload):
+    """The per-pixel rigidity replaced by a uniform field of its mean."""
+    from lqr_tpu_torch import carver
+    init_state = carver.init_state
+
+    def uniform(cfg, img, *a, rig=None, **kw):
+        if rig is not None:
+            rig = torch.full_like(rig, float(rig.mean()))
+        return init_state(cfg, img, *a, rig=rig, **kw)
+
+    out = run_tiny(workload, patch=lambda: monkeypatch.setattr(
+        carver, "init_state", uniform))
+    assert not out["correct"]
+    assert out["checks"]["vs_mismatch"]["value"] > 0
 
 
 @pytest.mark.parametrize("workload", CELLS)
