@@ -281,6 +281,24 @@ def materialize_all_batched(cfg: EngineConfig, st: MapState, w,
     return one(st.ref), tuple(one(a) for a in st.aux)
 
 
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    """t as a host numpy array. A tensor on the card is copied into a
+    page-locked tensor from PyTorch's caching host allocator (the copy
+    engine writes it at full rate, where a pageable copy goes through
+    CUDA's staging buffer) and counted in ``bytes.d2h_pinned``; the
+    copy is finished on return. A CPU tensor is returned as it is, and a
+    failed page-locked allocation falls back to a pageable copy."""
+    if t.device.type == "cpu":
+        return t.numpy()
+    try:
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    except RuntimeError:
+        return t.cpu().numpy()
+    host.copy_(t)
+    count("bytes.d2h_pinned", host.nbytes)
+    return host.numpy()
+
+
 class BatchCarver:
     """Host API for carving the widths of many images at once.
 
@@ -460,26 +478,38 @@ class BatchCarver:
 
     def images_at(self, new_widths):
         """Every image at the given widths (scalar or [B]): a list of
-        [h_i, w_i, C] u8 arrays."""
+        [h_i, w_i, C] u8 arrays, views of one [B, H, max(w), C] host
+        buffer that holds only the kept columns.
+
+        From a state on the card that buffer is page-locked host memory
+        from PyTorch's host cache (which rounds a block up to a power of
+        two: ~1 GiB for a 604 MB wave), so the copy runs at the DMA's rate;
+        it goes back to the cache when every returned array is dropped,
+        so a later call never writes into arrays the caller holds. Where
+        the page-locked allocation fails, and for a CPU state, the arrays
+        are plain host memory."""
         w = per_image(new_widths, len(self.widths))
         with annotate("batch.images_at"):
             with annotate("batch.materialize"):
                 out = materialize_batched(self.cfg, self.state, w,
-                                          self.cfg.Wb)
+                                          int(w.max()))
             with annotate("batch.copy_out"):
-                out = out.cpu().numpy()
+                out = _host_array(out)
             count("bytes.d2h", out.nbytes)
             return [out[i, :self.heights[i], :w[i]] for i in range(len(w))]
 
     def aux_at(self, new_widths):
         """Every attached aux image at the given widths: a per-image list
-        of per-aux lists (the same seams, lqr_carver_attach)."""
+        of per-aux lists (the same seams, lqr_carver_attach). Each aux is
+        read back as ``images_at`` reads the images: only the kept
+        columns, into page-locked host memory from PyTorch's host cache
+        for a state on the card."""
         w = per_image(new_widths, len(self.widths))
         with annotate("batch.materialize"):
             _img, aux = materialize_all_batched(self.cfg, self.state, w,
-                                                self.cfg.Wb)
+                                                int(w.max()))
         with annotate("batch.copy_out"):
-            aux = [a.cpu().numpy() for a in aux]
+            aux = [_host_array(a) for a in aux]
         count("bytes.d2h", sum(a.nbytes for a in aux))
         return [[a[i, :self.heights[i], :w[i]] for a in aux]
                 for i in range(len(w))]

@@ -36,9 +36,11 @@ Spans in the port (innermost last): ``carver.init`` > ``carver.upload``,
 (the seams ``core.engine.extend_map`` carved by each of its routes, and
 the host's ns inside them, traced or not), ``bytes.h2d`` and
 ``bytes.d2h`` (bytes handed between host arrays and the carvers'
-tensors), ``setup.kernels_s`` (``ops._build.load``'s seconds, a build
-included) and ``setup.native_s`` (the g++ libraries of ``utils.codec``
-and ``native``), and the groups ``LAUNCHES`` (``ops.dp_cuda``),
+tensors), ``bytes.d2h_pinned`` (those of ``bytes.d2h`` that
+``BatchCarver`` read back into page-locked memory), ``setup.kernels_s``
+(``ops._build.load``'s seconds, a build included) and
+``setup.native_s`` (the g++ libraries of ``utils.codec`` and
+``native``), and the groups ``LAUNCHES`` (``ops.dp_cuda``),
 ``EXCHANGES``, ``EXCHANGE_SECONDS``, ``HOST_COPIES`` and
 ``GLOO_MESSAGES`` (``parallel.sharding``).
 
