@@ -775,7 +775,7 @@ def check_resident(device) -> dict:
                            has_rig=rig is not None)
         st = init_state(cfg, crop_image(hw), bias=bias, rig=rig,
                         device=device)
-        pm = engine._posmap_from_vs(st.vs, st.ref_w)
+        pm = engine._posmap(st.vs, st.ref_w)
         return (st.cur_b, st.cur_bias, st.cur_rig, pm, w, 0, kc, dx,
                 cfg.has_bias, cfg.has_rig, nrg, cfg.side_switch_freq,
                 engine.KC)
@@ -792,8 +792,14 @@ def check_resident(device) -> dict:
         ("cfg1 512x384 no masks", chunk(CFG1, 128)),
     ]
     def compare(name, args):
-        """(kernel's outputs, largest error, the plain version's ms)."""
+        """(kernel's outputs, largest error, the plain version's ms); one
+        map launches on 8 blocks of 8 warps."""
+        before = dict(cr.BATCH_BLOCKS)
         got = cr.carve_chunk_resident(*args)
+        blocks = [n for n, c in cr.BATCH_BLOCKS.items() if c != before[n]]
+        if blocks != ["8"]:
+            raise AssertionError(f"carve_resident {name}: a launch of "
+                                 f"{blocks} blocks a map, expected 8")
         out = []
         plain_ms = _cuda_ms(
             lambda: out.append(cr.carve_chunk_resident_plain(*args)), 1,
@@ -805,7 +811,8 @@ def check_resident(device) -> dict:
                    if g is not None])
         H, Wb = args[0].shape
         say("kernels", f"carve_resident {name} H={H} Wb={Wb} w0={args[4]} "
-            f"d0={args[5]} kc={kc}: max_abs_err={e} (tolerance 0)")
+            f"d0={args[5]} kc={kc}: 8 blocks a map, max_abs_err={e} "
+            f"(tolerance 0)")
         if e != 0.0 or not bool((got[0][kc:] == -1).all()):
             raise AssertionError(f"carve_resident differs from plain: {name}")
         return got, e, plain_ms
@@ -936,6 +943,18 @@ def carve_step_loop(cfg, st, k: int, fuse_energy: bool):
     engine._commit_hist(vs, st.ref_w, d0, j, hist)
     return st._replace(vs=vs, cur_b=b, cur_bias=bias, cur_rig=rig,
                        depth=depth)
+
+
+def resident_route(cfg, st, k: int):
+    """extend_map on its resident route, whatever its gate says (the
+    engine's one resident route, on the map as a batch of one)."""
+    from lqr_tpu_torch.core import engine
+    gate = engine.route
+    engine.route = lambda cfg: "resident"
+    try:
+        return engine.extend_map(cfg, st, k)
+    finally:
+        engine.route = gate
 
 
 def fused_split(cfg, st, k: int):
@@ -1325,6 +1344,7 @@ def _batched_case(device, sizes, kc, delta_x, rigidity, seed, masks=True):
     plain ms, the kernel's call, the blocks a map it launched)."""
     import torch
     from lqr_tpu_torch.core import engine
+    from lqr_tpu_torch.core.state import per_map
     from lqr_tpu_torch.ops import carve_resident as cr
     from lqr_tpu_torch.parallel import batch
 
@@ -1339,7 +1359,7 @@ def _batched_case(device, sizes, kc, delta_x, rigidity, seed, masks=True):
                            device=device, **kw)
     st = bc.state
     B, H, Wb = st.vs.shape
-    pm = batch._posmap_batched(st.vs, st.ref_w)
+    pm = engine._posmap(st.vs, per_map(st.ref_w, device))
     rigc = torch.from_numpy(batch.rigc_table(bc.heights, delta_x)).to(device)
     d0 = [0] * B
     args = (st.cur_b, st.cur_bias, st.cur_rig, pm, bc.widths, d0, kc,
@@ -1577,7 +1597,7 @@ def run_cfg5(device, frames, counts) -> dict:
     bc.carve(counts)
     torch.cuda.synchronize()
     launches = _launches()
-    _expect_launches("cfg5", launches, _only(carve_resident_batched=2))
+    _expect_launches("cfg5", launches, _only(carve_resident=2))
     outs = bc.images_at(w - counts)
     checked = (len(frames) - 1, len(frames) // 2, len(frames) // 8)
     for f in checked:
@@ -1606,7 +1626,7 @@ def run_cfg4(device, arr) -> dict:
     bc.carve(seams)
     torch.cuda.synchronize()
     launches = _launches()
-    _expect_launches("cfg4", launches, _only(carve_resident_batched=2))
+    _expect_launches("cfg4", launches, _only(carve_resident=2))
     for i in (0, B - 1):
         vs = bc.state.vs[i, :, :w].cpu().numpy()
         if not np.array_equal(vs, native.carve(arr[i], seams)):
@@ -1662,7 +1682,7 @@ def run_ragged(device) -> dict:
     bc.carve(n)
     torch.cuda.synchronize()
     launches = _launches()
-    _expect_launches("ragged", launches, _only(carve_resident_batched=1))
+    _expect_launches("ragged", launches, _only(carve_resident=1))
     vs_all = bc.state.vs.cpu().numpy()
     outs, auxs = bc.images_at(bc.widths - n), bc.aux_at(bc.widths - n)
     for i, (h, w) in enumerate(d["sizes"]):
@@ -1770,7 +1790,7 @@ def route_launches(H: int, W: int, has_bias: bool, has_rig: bool,
     from lqr_tpu_torch.carver import _bucket
     from lqr_tpu_torch.core import engine
     from lqr_tpu_torch.ops.carve_resident import resident_ok
-    if resident_ok(H, _bucket(W), has_bias, has_rig):
+    if resident_ok(1, H, _bucket(W), has_bias, has_rig):
         return _only(carve_resident=-(-seams // engine.KC))
     return _only(dp_forward=seams, backtrack=seams)
 
@@ -2423,8 +2443,8 @@ def run_entry_points(device) -> None:
             2: _only(carve_resident=1),
             3: _only(carve_resident=N // 2 // KC, dp_forward=SEAMS,
                      backtrack=SEAMS),
-            4: _only(carve_resident_batched=2 * CFG4_IMAGES // CFG4[2]),
-            5: _only(carve_resident_batched=2)}
+            4: _only(carve_resident=2 * CFG4_IMAGES // CFG4[2]),
+            5: _only(carve_resident=2)}
     reset_launches()
     t0 = time.perf_counter()
     line = bench.measure(device=device)
@@ -2452,14 +2472,14 @@ def check_scaling_line(line) -> None:
     if "error" in line or line["ok"] is not True \
             or line["bit_exact"] is not True:
         raise AssertionError(f"{label}: {line.get('error', 'not ok')}")
-    per_row = _only(carve_resident_batched=CFG4[3] // KC)
+    per_row = _only(carve_resident=CFG4[3] // KC)
     if label == "data_parallel_scaling":
         _expect_launches(label, {k: line["launches_unsharded"].get(k, 0)
                                  for k in _launches()}, per_row)
         (dev,) = line["per_device"].values()
         _expect_launches(label, {k: dev["launches"].get(k, 0)
                                  for k in _launches()},
-                         _only(carve_resident_batched=line["rows"]
+                         _only(carve_resident=line["rows"]
                                * CFG4[3] // KC))
     elif label == "multiprocess_gloo_resize":
         for w in line["workers"]:
@@ -2635,8 +2655,7 @@ def main() -> int:
     _, vs_cfg2 = run_cfg2(device)
     run_cfg1(device, SEAMS)
     frames, counts = cfg5_inputs()
-    launches["carve_resident_batched"] = run_cfg5(
-        device, frames, counts)["carve_resident_batched"]
+    run_cfg5(device, frames, counts)
     wave = cfg4_inputs()
     run_cfg4(device, wave)
     run_ragged(device)
@@ -2647,9 +2666,9 @@ def main() -> int:
         launches[kname] = fl[kname]
 
     time_routes(device, f"{N}x{N}", (N, N),
-                [engine._extend_per_seam, engine._extend_resident,
-                 fused_split, fused_inline], SEAMS, gpu)
-    routes = [engine._extend_resident, engine._extend_per_seam]
+                [engine._extend_per_seam, resident_route, fused_split,
+                 fused_inline], SEAMS, gpu)
+    routes = [resident_route, engine._extend_per_seam]
     c2 = cfg2_inputs()
     time_routes(device, "1024x768 with bias and rig", CFG2, routes, SEAMS,
                 gpu, c2["bias"], c2["rig"])
@@ -2686,20 +2705,19 @@ def main() -> int:
     replaces = {"dp_forward": "lqr_tpu/ops/dp_pallas.py:351",
                 "backtrack": "lqr_tpu/ops/dp_pallas.py:547",
                 "carve_resident": "lqr_tpu/ops/carve_resident.py:178",
-                "carve_resident_batched": "lqr_tpu/ops/carve_resident.py:178",
                 "dp_block": "lqr_tpu/ops/dp_block.py:44",
                 "dp_sharded": "lqr_tpu/ops/dp_block.py:44",
                 "dp_energy_forward": "lqr_tpu/ops/dp_pallas.py:761",
                 "backtrack_compact": "lqr_tpu/ops/dp_pallas.py:925 and "
                                      "lqr_tpu/ops/dp_pallas.py:1002"}
-    sources = {"carve_resident_batched": "carve_resident",
-               "backtrack_compact": "carve_step"}
+    sources = {"backtrack_compact": "carve_step"}
     bounds = kernel_bounds(N)
     for kname, (ms_b, by) in bounds.items():
         say("bounds", f"{kname}: {ms_b * 1e3:.4f} us, bound by {by}")
     for kname, shape in (("carve_resident", f"the main path's launch "
                                             f"({N}x{N}, {SEAMS} seams)"),
                          ("carve_resident cfg2", "cfg2's 128-seam chunk"),
+                         ("carve_resident_batched", "cfg5's batch of 4 maps"),
                          ("carve_resident_batched cfg4", "the cfg4 shape"),
                          ("carve_resident_batched wave16",
                           "the wave16 shape"),

@@ -4,9 +4,11 @@ Counterpart of ``lqr_tpu.core.engine``. ``extend_map`` takes one of two
 routes, as the JAX engine does:
 
 - the resident route, where ``ops.carve_resident.resident_ok`` admits the
-  map: chunks of KC seams, each carved by one launch of the resident
-  kernel, whose seams come back as reference columns and go into ``vs`` by
-  one scatter per chunk;
+  map: ``extend_resident``, the route of a batch of maps (a solo map is a
+  batch of one, ``state.batch_of_one``; ``parallel.batch.extend_batched``
+  takes it at its batch size): chunks of KC seams, each carved by one
+  launch of the resident kernel for the whole batch, whose seams come back
+  as reference columns and go into ``vs`` by one scatter per chunk;
 - the per-seam route otherwise, one seam at a time as below.
 
 One seam on the compacted state:
@@ -24,20 +26,23 @@ One seam on the compacted state:
 
 ``ref_w`` and ``depth`` are host ints, so the seam loop never waits for the
 device. Materialization (SPEC.md §6) places pixels with cumsum destinations
-and a scatter, in place of the JAX engine's sort.
+and a scatter, in place of the JAX engine's sort, over a batch of maps
+at once (one map is a batch of one).
 """
 
 from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
 
-from .state import EngineConfig, MapState
+from .state import (EngineConfig, MapState, batch_of_one, image_state,
+                    per_map)
 from .energy import energy_from_plane
 from ..ops import dp_cuda
 from ..profiling import annotate, count
-from ..ops.carve_resident import carve_chunk_resident, resident_ok
+from ..ops.carve_resident import carve_chunk_resident_batched, resident_ok
 
 # seams per resident chunk: one kernel launch and one vs scatter each
 KC = 128
@@ -54,13 +59,18 @@ def _lane(Wb: int, device) -> torch.Tensor:
     return torch.arange(Wb, dtype=torch.int32, device=device)[None, :]
 
 
-def _posmap_from_vs(vs: torch.Tensor, ref_w: int) -> torch.Tensor:
-    """posmap[y, r] = reference column of the r-th visible pixel of row y
-    (entries past the row's visible count are don't-care)."""
-    H, Wb = vs.shape
-    visible = (vs == 0) & (_lane(Wb, vs.device) < ref_w)
-    hidden = (~visible).to(torch.uint8)
-    return torch.argsort(hidden, dim=1, stable=True).to(torch.int32)
+def _posmap(vs: torch.Tensor, ref_w) -> torch.Tensor:
+    """posmap[..., y, r] = reference column of the r-th visible pixel of
+    row y, then the hidden columns in order (the stable argsort of the
+    hidden flags, as a cumsum and one scatter): of one map (vs [H, Wb],
+    ref_w a host int) or of each map of a batch (vs [B, H, Wb], ref_w as
+    ``state.per_map`` gives the maps' widths)."""
+    lane = torch.arange(vs.shape[-1], dtype=torch.int32, device=vs.device)
+    visible = (vs == 0) & (lane < ref_w)
+    c = torch.cumsum(visible, dim=-1)         # visible columns up to x
+    dest = torch.where(visible, c - 1, c[..., -1:] + lane - c)
+    pm = torch.empty_like(vs)
+    return pm.scatter_(-1, dest, lane.expand(vs.shape))
 
 
 def total_energy(cur_b, cur_bias, w: int, nrg: int, has_bias: bool,
@@ -119,7 +129,7 @@ def _carve_once(cfg: EngineConfig, cur_b, cur_bias, cur_rig, posmap,
 def route(cfg: EngineConfig) -> str:
     """The route extend_map takes for a map of this config: "resident"
     (planes within ``RESIDENT_BUDGET``) or "per_seam"."""
-    if resident_ok(cfg.H, cfg.Wb, cfg.has_bias, cfg.has_rig):
+    if resident_ok(1, cfg.H, cfg.Wb, cfg.has_bias, cfg.has_rig):
         return "resident"
     return "per_seam"
 
@@ -137,7 +147,10 @@ def extend_map(cfg: EngineConfig, st: MapState, k: int) -> MapState:
     t0 = time.perf_counter_ns()
     with annotate("engine." + name):
         if name == "resident":
-            st = _extend_resident(cfg, st, k)
+            rigc = dp_cuda._rigc_device(cfg.delta_x, cfg.H, st.vs.device)
+            st = image_state(extend_resident(
+                cfg, batch_of_one(st), np.array([k], np.int64), cfg.H,
+                rigc[None]), 0)
         else:
             st = _extend_per_seam(cfg, st, k)
     count("route_ns." + name, time.perf_counter_ns() - t0)
@@ -145,34 +158,45 @@ def extend_map(cfg: EngineConfig, st: MapState, k: int) -> MapState:
     return st
 
 
-def _commit_ref_hist(vs: torch.Tensor, d0: int, kc: int,
-                     hist: torch.Tensor) -> None:
-    """Write seam ids d0+1 .. d0+kc into vs in place at the reference
-    columns hist[:kc] ([kc, H]): one scatter, every index distinct within
-    a row."""
-    ids = torch.arange(d0 + 1, d0 + kc + 1, dtype=torch.int32,
-                       device=vs.device)
-    vs.scatter_(1, hist[:kc].t().long(), ids[None, :].expand(vs.shape[0], kc))
-
-
-def _extend_resident(cfg: EngineConfig, st: MapState, k: int) -> MapState:
-    """extend_map in chunks of KC seams, one resident launch each (chunks
-    count from the start of this call, as in the JAX engine)."""
-    vs = st.vs.clone()
-    posmap = _posmap_from_vs(vs, st.ref_w)
+def extend_resident(cfg: EngineConfig, st: MapState, k, h,
+                    rigc: torch.Tensor) -> MapState:
+    """Carve k[b] further seams into each map of a batched state (k: [B]
+    host ints) through the resident kernel: chunks of KC seams counted
+    from this call, each one launch for the whole batch (the span
+    ``resident.chunk``) committed to vs by one scatter
+    (``resident.commit``). h: the maps' true heights (a host int, or [B]);
+    rigc: their rigidity coefficients [B, delta_x + 1] f32 on the planes'
+    device. The returned state owns a fresh vs."""
+    B, H, Wb = st.vs.shape
+    dev = st.vs.device
+    # vs lives in a buffer one element longer: a -1 history entry (past a
+    # map's kc) commits to that last element, which nothing reads
+    vs_buf = torch.empty(B * H * Wb + 1, dtype=torch.int32, device=dev)
+    vs = vs_buf[:-1].view(B, H, Wb)
+    vs.copy_(st.vs)
+    pm = _posmap(vs, per_map(st.ref_w, dev))
+    d0 = per_map(st.depth, dev)
     cur_b, cur_bias, cur_rig = st.cur_b, st.cur_bias, st.cur_rig
-    depth, done = st.depth, 0
-    while done < k:
-        kc = min(KC, k - done)
+    depth = st.depth.copy()
+    done, kmax = 0, int(k.max()) if B else 0
+    while done < kmax:
+        kc = np.clip(k - done, 0, KC)
         with annotate("resident.chunk"):
-            hist, cur_b, cur_bias, cur_rig, posmap = carve_chunk_resident(
-                cur_b, cur_bias, cur_rig, posmap, st.ref_w - depth, depth,
-                kc, cfg.delta_x, cfg.has_bias, cfg.has_rig, cfg.nrg,
+            hist, cur_b, cur_bias, cur_rig, pm = carve_chunk_resident_batched(
+                cur_b, cur_bias, cur_rig, pm, st.ref_w - depth, depth, kc, h,
+                rigc, cfg.delta_x, cfg.has_bias, cfg.has_rig, cfg.nrg,
                 cfg.side_switch_freq, KC)
         with annotate("resident.commit"):
-            _commit_ref_hist(vs, depth, kc, hist)
+            # seam j of the chunk is seam d0 + done + j + 1 of its map (a
+            # map that has carved all its seams records none)
+            ids = (torch.arange(done + 1, done + KC + 1, device=dev)
+                   .view(1, KC, 1) + d0).to(torch.int32)
+            base = torch.arange(B * H, device=dev).view(B, 1, H) * Wb
+            idx = torch.where(hist >= 0, base + hist, B * H * Wb)
+            vs_buf.scatter_(0, idx.reshape(-1),
+                            ids.expand(B, KC, H).reshape(-1))
         depth += kc
-        done += kc
+        done += KC
     return st._replace(vs=vs, cur_b=cur_b, cur_bias=cur_bias,
                        cur_rig=cur_rig, depth=depth)
 
@@ -182,7 +206,7 @@ def _extend_per_seam(cfg: EngineConfig, st: MapState, k: int, h=None,
     """extend_map one seam at a time, through the DP and backtrack
     kernels. h / rigc_vec: as for _carve_once."""
     vs = st.vs.clone()
-    posmap = _posmap_from_vs(vs, st.ref_w)
+    posmap = _posmap(vs, st.ref_w)
     cur_b, cur_bias, cur_rig = st.cur_b, st.cur_bias, st.cur_rig
     depth = st.depth
     for _ in range(int(k)):
@@ -213,8 +237,10 @@ def _commit_hist(vs: torch.Tensor, ref_w: int, d0: int, kc: int,
     R = hist[:kc].clone()
     for jr in range(kc - 2, -1, -1):
         R[jr + 1:] += (R[jr + 1:] >= hist[jr]).to(torch.int32)
-    cols = _posmap_from_vs(vs, ref_w).gather(1, R.t().long())     # [H, kc]
-    _commit_ref_hist(vs, d0, kc, cols.t())
+    cols = _posmap(vs, ref_w).gather(1, R.t().long())     # [H, kc]
+    ids = torch.arange(d0 + 1, d0 + kc + 1, dtype=torch.int32,
+                       device=vs.device)
+    vs.scatter_(1, cols.long(), ids[None, :].expand(vs.shape[0], kc))
 
 
 def seam_step(cfg: EngineConfig, st: MapState) -> MapState:
@@ -235,50 +261,66 @@ def _avg_insert(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _place(vals: torch.Tensor, dest: torch.Tensor, width: int):
-    """out[y, dest[y, x]] = vals[y, x] for dest < width; larger dests land
-    in a drop column. vals: [H, W, C]."""
-    H, _, C = vals.shape
-    dest = dest.clamp(max=width).long()
-    out = vals.new_zeros((H, width + 1, C))
-    out.scatter_(1, dest[:, :, None].expand(-1, -1, C), vals)
-    return out[:, :width]
+    """out[b, y, dest[b, y, x]] = vals[b, y, x] for dest < width; the rest
+    land in a drop column. vals: [B, H, W, C]; dest: [B, H, W] int64,
+    clamped in place."""
+    B, H, _, C = vals.shape
+    out = vals.new_zeros((B, H, width + 1, C))
+    out.scatter_(2, dest.clamp_(max=width)[..., None].expand(-1, -1, -1, C),
+                 vals)
+    return out[:, :, :width]
 
 
-def materialize_array(arr: torch.Tensor, vs: torch.Tensor, ref_w: int,
-                      w: int, out_Wb: int) -> torch.Tensor:
-    """Apply a visibility map to one reference-coordinate array.
+def _materialize(a: torch.Tensor, vs: torch.Tensor, ref_w: np.ndarray,
+                 w: np.ndarray, out_Wb: int) -> torch.Tensor:
+    """Apply each map's visibility map to its reference-coordinate array.
 
-    arr: [H, Wb] or [H, Wb, C]; vs: [H, Wb] i32. Returns [H, out_Wb(,C)]
-    with lanes >= w zeroed; requires |w - ref_w| <= depth.
-
-    shrink: keep pixels with vs == 0 or vs > ref_w - w, in column order.
-    enlarge: after each pixel with 1 <= vs <= w - ref_w, insert the
-    average of it and its right neighbour (the pixel itself at the edge).
+    a: [B, H, Wb, C]; vs: [B, H, Wb] i32; ref_w, w: [B] host ints. Returns
+    [B, H, out_Wb, C] with lanes >= w[b] zeroed; requires |w - ref_w| <=
+    depth. Each map keeps its pixels with vs == 0 or vs > ref_w - w, in
+    column order, and after each pixel with 1 <= vs <= w - ref_w inserts
+    the average of it and its right neighbour (the pixel itself at the
+    edge): a map that shrinks inserts nothing, one that enlarges drops
+    nothing, so a batch may mix the two.
     """
-    H, Wb = vs.shape
-    lane = _lane(Wb, vs.device)
-    has_c = arr.ndim == 3
-    a = arr if has_c else arr[:, :, None]
-    if w <= ref_w:
-        k = ref_w - w
-        keep = ((vs == 0) | (vs > k)) & (lane < ref_w)
-        dest = torch.cumsum(keep.to(torch.int32), dim=1) - 1
-        out = _place(a, torch.where(keep, dest, out_Wb), out_Wb)
+    B, H, Wb = vs.shape
+    dev = vs.device
+    lane = torch.arange(Wb, dtype=torch.int32, device=dev)
+    rw, grow, w_d = (per_map(x, dev) for x in (ref_w, w - ref_w, w))
+    valid = lane < rw
+    keep = valid & ((vs == 0) | (vs > -grow))
+    dest = torch.cumsum(keep, dim=2).sub_(1)
+    if (w > ref_w).any():
+        dup = valid & (vs >= 1) & (vs <= grow)
+        dest += torch.cumsum(dup, dim=2).sub_(dup.to(torch.int64))
+        nxt = torch.roll(a, -1, dims=2)
+        nxt = torch.where((lane == rw - 1)[..., None], a, nxt)
+        a = torch.cat([a, _avg_insert(a, nxt)], dim=2)
+        dest = torch.cat([dest.masked_fill(~keep, out_Wb),
+                          (dest + 1).masked_fill_(~dup, out_Wb)], dim=2)
     else:
-        k = w - ref_w
-        valid = lane < ref_w
-        dup = valid & (vs >= 1) & (vs <= k)
-        pos = lane + torch.cumsum(dup.to(torch.int32), dim=1) - dup.to(
-            torch.int32)                 # destination of each original
-        nxt = torch.roll(a, -1, dims=1)
-        nxt = torch.where((lane == ref_w - 1)[:, :, None], a, nxt)
-        ins = _avg_insert(a, nxt)
-        vals = torch.cat([a, ins], dim=1)
-        dest = torch.cat([torch.where(valid, pos, out_Wb),
-                          torch.where(dup, pos + 1, out_Wb)], dim=1)
-        out = _place(vals, dest, out_Wb)
-    out = torch.where((_lane(out_Wb, vs.device) < w)[:, :, None], out, 0)
-    return out if has_c else out[:, :, 0]
+        dest.masked_fill_(~keep, out_Wb)
+    out = _place(a, dest, out_Wb)
+    lane_out = torch.arange(out_Wb, dtype=torch.int32, device=dev)
+    return torch.where((lane_out < w_d)[..., None], out, 0)
+
+
+def materialize_array(arr: torch.Tensor, vs: torch.Tensor, ref_w, w,
+                      out_Wb: int) -> torch.Tensor:
+    """Apply a visibility map to one reference-coordinate array: arr
+    [H, Wb] or [H, Wb, C], vs [H, Wb] i32, ref_w and w host ints; or to
+    each map of a batch: arr [B, H, Wb(, C)], vs [B, H, Wb], ref_w and w
+    [B] host ints. Returns [(B,) H, out_Wb(, C)] with lanes >= w zeroed
+    (``_materialize``)."""
+    one = vs.ndim == 2
+    if one:
+        arr, vs, ref_w, w = arr[None], vs[None], [ref_w], [w]
+    has_c = arr.ndim == 4
+    out = _materialize(arr if has_c else arr[..., None], vs,
+                       np.asarray(ref_w, np.int64), np.asarray(w, np.int64),
+                       out_Wb)
+    out = out if has_c else out[..., 0]
+    return out[0] if one else out
 
 
 def materialize(cfg: EngineConfig, st: MapState, w: int,

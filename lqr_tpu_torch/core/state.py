@@ -17,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..config import EnergyFunc, DEFAULT_SIDE_SWITCH_FREQUENCY
@@ -58,7 +59,9 @@ class MapState(NamedTuple):
       cur_bias f32 [H, Wb] or None
       cur_rig  f32 [H, Wb] or None
 
-    Host ints: ref_w, depth.
+    Host ints: ref_w, depth. A batch of maps has a leading axis on every
+    tensor and [B] int64 host arrays for ref_w and depth
+    (``batch_of_one``, ``image_state``).
     """
 
     ref: torch.Tensor
@@ -80,6 +83,55 @@ def round_up(x: int, m: int) -> int:
 def lane_index(H: int, Wb: int, device) -> torch.Tensor:
     """[H, Wb] int32 column index grid on ``device`` (a broadcast view)."""
     return torch.arange(Wb, dtype=torch.int32, device=device).expand(H, Wb)
+
+
+def batch_of_one(st: MapState) -> MapState:
+    """A solo state as a batch of one: every tensor a view with a leading
+    axis of 1, ref_w and depth [1] host arrays."""
+    def one(a):
+        return None if a is None else a[None]
+    return MapState(ref=st.ref[None], bias=one(st.bias), rig=one(st.rig),
+                    vs=st.vs[None], aux=tuple(a[None] for a in st.aux),
+                    cur_b=st.cur_b[None], cur_bias=one(st.cur_bias),
+                    cur_rig=one(st.cur_rig),
+                    ref_w=np.array([st.ref_w], np.int64),
+                    depth=np.array([st.depth], np.int64))
+
+
+def image_state(st: MapState, i: int) -> MapState:
+    """Map i of a batched state, as a solo state (views, host ints)."""
+    def pick(a):
+        return None if a is None else a[i]
+    return MapState(ref=st.ref[i], bias=pick(st.bias), rig=pick(st.rig),
+                    vs=st.vs[i], aux=tuple(a[i] for a in st.aux),
+                    cur_b=st.cur_b[i], cur_bias=pick(st.cur_bias),
+                    cur_rig=pick(st.cur_rig), ref_w=int(st.ref_w[i]),
+                    depth=int(st.depth[i]))
+
+
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A small host array (per-map ints) as a tensor of its own on
+    ``device``. To the card it goes from page-locked memory without
+    waiting: a copy from pageable memory, the fallback where page-locked
+    memory is refused, waits for the stream's queued work, and the carve's
+    launches then stall on it."""
+    if torch.device(device).type == "cuda":
+        try:
+            return torch.from_numpy(a).pin_memory().to(device,
+                                                       non_blocking=True)
+        except RuntimeError:
+            pass
+    return torch.tensor(a, device=device)
+
+
+def per_map(x, device):
+    """Per-map host ints x ([B]) as an operand that broadcasts against the
+    maps' [B, ...] tensors: a [B, 1, 1] int64 tensor on ``device``, or for a
+    batch of one the host int itself, which needs no copy."""
+    x = np.asarray(x, np.int64).reshape(-1)
+    if x.size == 1:
+        return int(x[0])
+    return to_device(x, device)[:, None, None]
 
 
 def resolve_device(device) -> torch.device:

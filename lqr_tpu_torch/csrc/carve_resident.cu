@@ -2,8 +2,9 @@
 //
 // Replaces the Pallas TPU kernel lqr_tpu/ops/carve_resident.py:_kernel
 // (launched by carve_chunk_resident). One launch carves kc <= KC seams off
-// the compacted planes of a map; per seam j, at width w = w0 - j and global
-// 1-based seam index s = d0 + j + 1:
+// the compacted planes of each map of a batch (a solo map is a batch of
+// one); per seam j, at width w = w0 - j and global 1-based seam index
+// s = d0 + j + 1:
 //
 //   1. the side preference of s (SPEC.md §5): LEFT iff ssf <= 0 or
 //      (s - 1) / ssf is even (it can switch inside a chunk);
@@ -25,9 +26,9 @@
 // step). None of the TPU layout is carried over: no [f, 128] folds, no
 // wedges, no one-hot chase, no SMEM scalars.
 //
-// The batched entry (lqr_carve_resident_batched) carves one chunk for every
-// map of a [B, H, Wp] batch in one launch, one cluster per map, each with
-// its own w0, d0, kc, true height h and rigc row. It replaces the JAX
+// The entry (lqr_carve_resident_batched) carves one chunk for every map of
+// a [B, H, Wp] batch in one launch, one cluster per map, each with its own
+// w0, d0, kc, true height h and rigc row. It replaces the JAX
 // package's "scan the batch through the solo engine" tier
 // (lqr_tpu/parallel/batch.py:71-88). Ragged rows follow
 // lqr_tpu/core/dp.py:90-93 and core/energy.py:90-93: the bottom edge
@@ -38,8 +39,8 @@
 // x >= w0, as kc per-seam steps leave it.
 //
 // Design: one thread-block cluster per map, persistent across the chunk
-// (the solo entry: 8 blocks of 8 warps). The batched entry's cluster is
-// chosen per launch from the batch (ops/carve_resident.py:batch_cluster):
+// (one map: 8 blocks of 8 warps). The cluster is chosen per launch from
+// the batch (ops/carve_resident.py:batch_cluster):
 // the most warps a map, 8, 4 or 2 blocks of 8 warps or 2 of 4, of which
 // the card holds all B clusters at once (lqr_resident_clusters asks it),
 // so that a small batch's maps each run their energy pass and compaction
@@ -127,7 +128,7 @@ struct Chunk {
   int* seam;             // [H]
   int* hist;             // [KC, H]
   const float* rigc;     // [delta_x + 1] (batched: a row per map)
-  const int* params;     // batched: [B, 4] rows [w0, d0, kc, h]; else null
+  const int* params;     // [B, 4] rows [w0, d0, kc, h] (never null)
   int H, Wp, w0, d0, kc, KC, delta, nrg, ssf;
   int ctas, warps, S, G, K;   // the DP's geometry
 };
@@ -544,33 +545,18 @@ int launch(Chunk c, int maps, int csize, int nwarps, cudaStream_t stream) {
 
 extern "C" {
 
-// b, bias, rig: [H, Wp] f32, carved in place (bias and rig may be null);
-// pm: [H, Wp] i32 posmap, carved in place; Wp a multiple of 4 and every
-// plane 16-byte aligned. e: [H, Wp] f32, bp: [H, Wp] int8 and seam: [H]
-// i32 scratch; hist: [KC, H] i32 out (rows >= kc set to -1); rigc:
-// [delta_x + 1] f32 on the device. csize, nwarps: a cluster of csize
+// b, bias, rig: [B, H, Wp] f32, carved in place (bias and rig may be
+// null); pm: [B, H, Wp] i32 posmap, carved in place; Wp a multiple of 4 and
+// every plane 16-byte aligned. e: [B, H, Wp] f32, bp: [B, H, Wp] int8 and
+// seam: [B, H] i32 scratch; hist: [B, KC, H] i32 out (rows >= kc set to
+// -1); rigc: [B, delta_x + 1] f32 and params: [B, 4] i32 on the device,
+// one row [w0, d0, kc, h] per map (0 <= kc <= min(KC, w0), w0 <= Wp, d0 >=
+// 0, 1 <= h <= H; the caller checks them). One cluster per map of csize
 // (1..8) blocks of nwarps (<= 8) warps; ctas, warps, S, G, K: the DP's
 // strip geometry on the first ctas blocks' first warps warps (S a multiple
 // of 16, S + 2 G = 256, G >= delta_x * K). Launches on `stream` and
 // returns the launch's cudaError_t (0 on success), clearing it; a chunk or
 // geometry the kernel cannot take never launches.
-int lqr_carve_resident(float* b, float* bias, float* rig, int* pm, float* e,
-                       int8_t* bp, int* seam, int* hist, const float* rigc,
-                       int H, int Wp, int w0, int d0, int kc, int KC,
-                       int delta_x, int nrg, int ssf, int csize, int nwarps,
-                       int ctas, int warps, int S, int G, int K,
-                       void* stream) {
-  if (kc < 0 || kc > KC || kc > w0 || w0 > Wp || d0 < 0)
-    return (int)cudaErrorInvalidValue;
-  const Chunk c{b, bias, rig, pm, e, bp, seam, hist, rigc, nullptr, H, Wp,
-                w0, d0, kc, KC, delta_x, nrg, ssf, ctas, warps, S, G, K};
-  return launch(c, 1, csize, nwarps, (cudaStream_t)stream);
-}
-
-// The batched entry: every plane (and e, bp) is [B, H, Wp], seam [B, H],
-// hist [B, KC, H], rigc [B, delta_x + 1] f32, params [B, 4] i32 on the
-// device, one row [w0, d0, kc, h] per map (0 <= kc <= min(KC, w0), w0 <=
-// Wp, d0 >= 0, 1 <= h <= H; the caller checks them). One cluster per map.
 int lqr_carve_resident_batched(float* b, float* bias, float* rig, int* pm,
                                float* e, int8_t* bp, int* seam, int* hist,
                                const float* rigc, const int* params, int B,
@@ -589,7 +575,7 @@ int lqr_carve_resident_batched(float* b, float* bias, float* rig, int* pm,
 // (ctas, warps, S, G, K), with a rigidity plane or without: the answer of
 // cudaOccupancyMaxActiveClusters for the kernel variant, the shared memory
 // and the cluster that such a launch uses; or a negative cudaError_t.
-// ops/carve_resident.py picks the batched entry's cluster by it.
+// ops/carve_resident.py picks the launch's cluster by it.
 int lqr_resident_clusters(int Wp, int delta_x, int has_rig, int csize,
                           int nwarps, int ctas, int warps, int S, int G,
                           int K) {

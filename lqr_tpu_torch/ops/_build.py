@@ -128,8 +128,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lqr_smem_optin.argtypes = []
     lib.lqr_backtrack.restype = i
     lib.lqr_backtrack.argtypes = [p, p, i, i, i, p, p]
-    lib.lqr_carve_resident.restype = i
-    lib.lqr_carve_resident.argtypes = [p] * 9 + [i] * 16 + [p]
     lib.lqr_carve_resident_batched.restype = i
     lib.lqr_carve_resident_batched.argtypes = [p] * 10 + [i] * 14 + [p]
     lib.lqr_resident_clusters.restype = i

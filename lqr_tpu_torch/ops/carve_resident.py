@@ -1,14 +1,20 @@
 """The resident multi-seam carve: a whole chunk of seams in one launch.
 
-Counterpart of ``lqr_tpu.ops.carve_resident``. ``carve_chunk_resident``
-takes the JAX function's arguments and returns its values: the compacted
-planes and posmap after kc seams, every plane zero at x >= w0 - kc, and
-``hist [KC, H]`` i32, the seams' reference columns (rows >= kc are -1; the
-JAX function leaves them as garbage). The input tensors are left as they
-are. On a CPU tensor it runs ``carve_chunk_resident_plain``; on a CUDA
-tensor it launches ``csrc/carve_resident.cu`` on the current stream
-without synchronizing (every scratch from ``torch.empty``), or raises.
-There is no fallback from a failed launch to the plain version.
+Counterpart of ``lqr_tpu.ops.carve_resident``.
+``carve_chunk_resident_batched`` carves one chunk for every map of a
+``[B, H, Wb]`` batch in one launch, one cluster per map, each with its own
+``w0``, ``d0``, ``kc``, true height ``h`` and row of a ``rigc [B,
+delta_x + 1]`` table (rows >= h of a padded map pass through, as in
+``lqr_tpu.core.dp``), and returns per map the compacted planes and posmap
+after kc seams, every plane zero at x >= w0 - kc, and ``hist [KC, H]``
+i32, the seams' reference columns (rows >= kc are -1; the JAX function
+leaves them as garbage). ``carve_chunk_resident`` takes the JAX function's
+arguments and returns its values: the same launch on one map, a batch of
+one. The input tensors are left as they are. On CPU tensors it runs the
+loop over the maps of ``carve_chunk_resident_plain``; on CUDA tensors it
+launches ``csrc/carve_resident.cu`` on the current stream without
+synchronizing (every scratch from ``torch.empty``), or raises. There is no
+fallback from a failed launch to the plain version.
 
 The kernel carves a chunk with one thread-block cluster per map
 (``csrc/carve_resident.cu``): per seam an energy pass into an E scratch
@@ -19,80 +25,71 @@ record and compaction over every warp. It takes planes whose rows are a
 multiple of 4 floats and 16-byte aligned: the wrapper carves copies
 padded to ``padded_width(Wb)`` columns and returns them cut back to Wb.
 
-The gate is the port's own, set by the medians of both extend_map routes
-in chip_smoke.py phase 5 and tools/ab_timing.py (NVIDIA H100 80GB HBM3,
-700 W): the resident route took 308 against 680-807 us/seam at cfg2
-(1024x768 with bias and rigidity, 13.4 MB of planes), 119 against 500-546
-at cfg1 (512x384, 1.8 MB) and 810 against 872-873 at 2048x2048 without
-masks (37.7 MB). So ``resident_ok`` admits a map whose planes fit
-``RESIDENT_BUDGET``, the largest map measured: 2048x2048 without masks,
-36 MiB, the main path, takes the resident route. Larger maps, where the
-cluster's energy pass and compaction (on 8 SMs) grow with the map while
-the per-seam route's glue runs on every SM, are not measured and keep the
-per-seam route. The TPU's criteria (H % CH, the 14 MB VMEM limit) are not
-carried over.
+The gate, ``resident_ok(B, ...)``, is the port's own. For one map it was
+set by the medians of both extend_map routes in chip_smoke.py phase 5 and
+tools/ab_timing.py (NVIDIA H100 80GB HBM3, 700 W): the resident route took
+308 against 680-807 us/seam at cfg2 (1024x768 with bias and rigidity, 13.4
+MB of planes), 119 against 500-546 at cfg1 (512x384, 1.8 MB) and 810
+against 872-873 at 2048x2048 without masks (37.7 MB). So a batch of one
+takes the resident route where its planes fit ``RESIDENT_BUDGET``, the
+largest map measured: 2048x2048 without masks, 36 MiB, the main path.
+Larger maps, where the cluster's energy pass and compaction (on 8 SMs)
+grow with the map while the per-seam route's glue runs on every SM, are
+not measured and keep the per-seam route. A batch of two or more maps
+runs on all SMs at once and its planes stream from device memory whatever
+their size, as they do on the per-seam route, which would carve the maps
+one at a time; so it takes the resident kernel whenever its columns fit
+the kernel (Wb <= MAX_WB). The TPU's criteria (H % CH, the 14 MB VMEM
+limit) are not carried over.
 
-``carve_chunk_resident_batched`` carves one chunk for every map of a
-``[B, H, Wb]`` batch in one launch, one cluster per map, each with its own
-``w0``, ``d0``, ``kc``, true height ``h`` and row of a ``rigc [B,
-delta_x + 1]`` table (rows >= h of a padded map pass through, as in
-``lqr_tpu.core.dp``). Its plain version is the loop over the maps of
-``carve_chunk_resident_plain``. Its gate, ``batched_resident_ok``, is not
-the solo gate: a batch's maps run on all SMs at once and their planes
-stream from device memory whatever their size, as they do on the per-seam
-route, which would carve the maps one at a time. So a batch of two or more
-maps takes the batched kernel whenever its columns fit the kernel (Wb <=
-MAX_WB); a batch of one keeps the solo gate.
-
-The batched entry's cluster follows the batch (``batch_cluster``): each
-map gets the first of BATCH_CLUSTERS, (blocks, warps a block) from the
-most warps a map down, of which the card holds all B clusters at once; the
-DP runs on ``strip_geometry``'s strips, as in the solo entry. The card says
-how many it holds (``resident_clusters``: cudaOccupancyMaxActiveClusters
-for the launch's kernel variant, shared memory and cluster, asked once per
-device, width, delta_x, rigidity flag and cluster). A batch too large for
-every such cluster (a wave of 256 maps) keeps one block of 4 warps per map
-(ONE_BLOCK), all in flight at once, two blocks an SM; a batch of one,
-under the solo gate, gets the solo entry's cluster. The list comes from
-tools/batch_clusters.py (NVIDIA H100 80GB HBM3, 700 W, 1024x1024 and
-640x360 maps, B from 2 to 256): the most warps a map won at every B where
-the card held them, and at equal warps fewer blocks of 8 warps won (4 x 8
-over 8 x 4, 2 x 8 over 4 x 4) but for one B within 2 %. The kernel's 255
-registers a thread hold an SM to one block of 8 warps, and 15 clusters of
-8 such blocks fit this card. ``BATCH_BLOCKS`` counts the batched launches
-by blocks a map (``profiling.COUNTERS``'s group ``BATCH_BLOCKS``).
+The cluster follows the batch (``batch_cluster``): each map gets the first
+of BATCH_CLUSTERS, (blocks, warps a block) from the most warps a map down,
+of which the card holds all B clusters at once; the DP runs on
+``strip_geometry``'s strips. The card says how many it holds
+(``resident_clusters``: cudaOccupancyMaxActiveClusters for the launch's
+kernel variant, shared memory and cluster, asked once per device, width,
+delta_x, rigidity flag and cluster). One map gets 8 blocks of 8 warps. A
+batch too large for every such cluster (a wave of 256 maps) keeps one
+block of 4 warps per map (ONE_BLOCK), all in flight at once, two blocks an
+SM. The list comes from tools/batch_clusters.py (NVIDIA H100 80GB HBM3,
+700 W, 1024x1024 and 640x360 maps, B from 2 to 256): the most warps a map
+won at every B where the card held them, and at equal warps fewer blocks
+of 8 warps won (4 x 8 over 8 x 4, 2 x 8 over 4 x 4) but for one B within
+2 %. The kernel's 255 registers a thread hold an SM to one block of 8
+warps, and 15 clusters of 8 such blocks fit this card. ``BATCH_BLOCKS``
+counts the launches by blocks a map (``profiling.COUNTERS``'s group
+``BATCH_BLOCKS``).
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from .. import profiling
-from ..core.state import EngineConfig
+from ..core.state import EngineConfig, to_device
 from . import _build, dp_cuda
 
 __all__ = ["RESIDENT_BUDGET", "MAX_WB", "BATCH_BLOCKS", "resident_bytes",
-           "resident_ok", "batched_resident_ok", "batch_cluster",
-           "resident_clusters", "carve_chunk_resident",
-           "carve_chunk_resident_plain", "carve_chunk_resident_batched",
+           "resident_ok", "batch_cluster", "resident_clusters",
+           "carve_chunk_resident", "carve_chunk_resident_plain",
+           "carve_chunk_resident_batched",
            "carve_chunk_resident_batched_plain"]
 
 RESIDENT_BUDGET = 36 << 20      # bytes of planes: 2048 x 2048 x 9 B, the
                                 # largest map measured (see the module doc)
 MAX_WB = 8192                   # columns: the frontier pair and M_last
                                 # fit shared memory beside the rings
-# csrc/carve_resident.cu's clusters, (blocks, warps a block): the solo
-# entry's; the batched entry's, most warps a map first, and its one block a
-# map; the static shared memory beside the dynamic (the chase's two windows
-# and the warps' reduction slots)
-SOLO_CLUSTER = (8, 8)
+# csrc/carve_resident.cu's clusters, (blocks, warps a block): most warps a
+# map first, and one block a map; the static shared memory beside the
+# dynamic (the chase's two windows and the warps' reduction slots)
 BATCH_CLUSTERS = ((8, 8), (4, 8), (2, 8), (2, 4))
 ONE_BLOCK = (1, 4)
 STATIC_SMEM = 2 * 32 * 144 + 8 * 8
 
-# the batched entry's launches by blocks a map
+# the launches by blocks a map
 BATCH_BLOCKS = profiling.group("BATCH_BLOCKS",
                                {"1": 0, "2": 0, "4": 0, "8": 0})
 
@@ -102,18 +99,16 @@ def padded_width(Wb: int) -> int:
     return -(-Wb // 4) * 4
 
 
-def resident_geometry(Wp: int, delta_x: int, cluster=SOLO_CLUSTER,
-                      max_warps: int = SOLO_CLUSTER[1]):
+def resident_geometry(Wp: int, delta_x: int, cluster, max_warps: int = 8):
     """(csize, nwarps, ctas, warps, S, G, K) of the resident kernel for a
     map of Wp columns on a cluster of csize blocks of nwarps warps (cluster
     = (csize, nwarps)), whose first ctas blocks' first warps warps run the
     DP's strips (S kept columns, G = (256 - S) / 2 halo columns, K rows
-    between exchanges; see dp_cuda.strip_geometry). Two blocks or more (the
-    solo entry, the batched entry's wider clusters): the strips of
-    strip_geometry with at most min(nwarps, max_warps) warps a block, or
-    None where those strips need more than csize blocks. One block (the
-    batched entry's ONE_BLOCK): the fewest strips a warp whose halo is wide
-    enough (G >= 8 * delta_x)."""
+    between exchanges; see dp_cuda.strip_geometry). Two blocks or more:
+    the strips of strip_geometry with at most min(nwarps, max_warps) warps
+    a block, or None where those strips need more than csize blocks. One
+    block (ONE_BLOCK): the fewest strips a warp whose halo is wide enough
+    (G >= 8 * delta_x)."""
     csize, nwarps = cluster
     if csize > 1:
         ctas, warps, S, G, K = dp_cuda.strip_geometry(
@@ -134,7 +129,7 @@ def resident_geometry(Wp: int, delta_x: int, cluster=SOLO_CLUSTER,
 def _geometry(Wp: int, delta_x: int, cluster, device):
     room = dp_cuda.smem_optin(device) - STATIC_SMEM - 3 * Wp * 4
     return resident_geometry(Wp, delta_x, cluster,
-                             min(SOLO_CLUSTER[1], room // dp_cuda.WARP_RING))
+                             room // dp_cuda.WARP_RING)
 
 
 @functools.lru_cache(maxsize=64)
@@ -157,10 +152,10 @@ def resident_clusters(device, Wp: int, delta_x: int, has_rig: bool,
 
 
 def batch_cluster(B: int, clusters):
-    """(blocks, warps a block) of each map in the batched entry's launch
-    for B maps: the first of BATCH_CLUSTERS of which the card holds all B
-    at once (clusters(cluster): resident_clusters at the batch's device,
-    Wp, delta_x and rigidity flag), else ONE_BLOCK."""
+    """(blocks, warps a block) of each map in the launch for B maps: the
+    first of BATCH_CLUSTERS of which the card holds all B at once
+    (clusters(cluster): resident_clusters at the batch's device, Wp,
+    delta_x and rigidity flag), else ONE_BLOCK."""
     for cluster in BATCH_CLUSTERS:
         if clusters(cluster) >= B:
             return cluster
@@ -173,89 +168,30 @@ def resident_bytes(H: int, Wb: int, has_bias: bool, has_rig: bool) -> int:
     return H * Wb * (4 * (2 + int(has_bias) + int(has_rig)) + 1)
 
 
-def resident_ok(H: int, Wb: int, has_bias: bool, has_rig: bool) -> bool:
-    """Whether extend_map takes the resident route for this map."""
-    return (Wb <= MAX_WB
-            and resident_bytes(H, Wb, has_bias, has_rig) <= RESIDENT_BUDGET)
-
-
-def batched_resident_ok(B: int, H: int, Wb: int, has_bias: bool,
-                        has_rig: bool) -> bool:
-    """Whether a batch of B maps takes the batched resident kernel (see the
-    module doc)."""
-    if B == 1:
-        return resident_ok(H, Wb, has_bias, has_rig)
-    return Wb <= MAX_WB
-
-
-def _check_args(cur_b, cur_bias, cur_rig, posmap, w0, d0, kc, delta_x,
-                has_bias, has_rig, nrg, KC) -> None:
-    if cur_b.ndim != 2:
-        raise ValueError(f"cur_b: expected [H, Wb], got {tuple(cur_b.shape)}")
-    shape, dev = tuple(cur_b.shape), cur_b.device
-    dp_cuda._check(cur_b, "cur_b", torch.float32, shape, dev)
-    dp_cuda._check(posmap, "posmap", torch.int32, shape, dev)
-    for name, plane, flag in (("cur_bias", cur_bias, has_bias),
-                              ("cur_rig", cur_rig, has_rig)):
-        if flag:
-            if plane is None:
-                raise ValueError(f"{name} is None but its flag is set")
-            dp_cuda._check(plane, name, torch.float32, shape, dev)
-    if not 0 <= kc <= KC:
-        raise ValueError(f"kc={kc} out of range 0..{KC}")
-    if not kc <= w0 <= shape[1]:
-        raise ValueError(f"w0={w0} must lie in [kc={kc}, Wb={shape[1]}]")
-    if d0 < 0:
-        raise ValueError(f"d0={d0} must be >= 0")
-    if not 0 <= delta_x <= 10:
-        raise ValueError(f"delta_x={delta_x} out of range 0..10")
-    if not 0 <= nrg <= 6:
-        raise ValueError(f"nrg={nrg} out of range 0..6")
+def resident_ok(B: int, H: int, Wb: int, has_bias: bool,
+                has_rig: bool) -> bool:
+    """Whether a batch of B maps takes the resident route: one map whose
+    planes fit RESIDENT_BUDGET, or two or more whose columns fit the
+    kernel (see the module doc)."""
+    return Wb <= MAX_WB and (
+        B > 1 or resident_bytes(H, Wb, has_bias, has_rig) <= RESIDENT_BUDGET)
 
 
 def carve_chunk_resident(cur_b, cur_bias, cur_rig, posmap, w0: int, d0: int,
                          kc: int, delta_x: int, has_bias: bool,
                          has_rig: bool, nrg: int, ssf: int, KC: int):
-    """Carve kc <= KC seams at width w0, depth d0. Returns (hist [KC, H]
-    i32, cur_b', cur_bias', cur_rig', posmap'); cur_bias'/cur_rig' are the
-    inputs when their flag is off."""
-    _check_args(cur_b, cur_bias, cur_rig, posmap, w0, d0, kc, delta_x,
-                has_bias, has_rig, nrg, KC)
-    if cur_b.device.type == "cpu":
-        return carve_chunk_resident_plain(cur_b, cur_bias, cur_rig, posmap,
-                                          w0, d0, kc, delta_x, has_bias,
-                                          has_rig, nrg, ssf, KC)
-    if cur_b.device.type != "cuda":
-        raise ValueError(f"cur_b: unsupported device {cur_b.device}")
-    H, Wb = cur_b.shape
-    if Wb > MAX_WB:
-        raise ValueError(f"Wb={Wb} exceeds the kernel's {MAX_WB}")
-
-    lib = _build.load()
-    dev = cur_b.device
-    Wp = padded_width(Wb)
-    geo = _geometry(Wp, delta_x, SOLO_CLUSTER, dev)
-    # the kernel carves in place: it works on (padded) copies
-    b, pm = _padded(cur_b, Wp), _padded(posmap, Wp)
-    bias = _padded(cur_bias, Wp) if has_bias else cur_bias
-    rig = _padded(cur_rig, Wp) if has_rig else cur_rig
-    hist = torch.empty((KC, H), dtype=torch.int32, device=dev)
-    e = torch.empty((H, Wp), dtype=torch.float32, device=dev)
-    bp = torch.empty((H, Wp), dtype=torch.int8, device=dev)
-    seam = torch.empty(H, dtype=torch.int32, device=dev)
-    rigc = dp_cuda._rigc_device(delta_x, H, dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.lqr_carve_resident(
-            b.data_ptr(), bias.data_ptr() if has_bias else None,
-            rig.data_ptr() if has_rig else None, pm.data_ptr(),
-            e.data_ptr(), bp.data_ptr(), seam.data_ptr(), hist.data_ptr(),
-            rigc.data_ptr(), H, Wp, int(w0), int(d0), int(kc), int(KC),
-            delta_x, nrg, int(ssf), *geo, stream)
-    _build.check(lib, rc, "lqr_carve_resident")
-    dp_cuda.LAUNCHES["carve_resident"] += 1
-    return (hist, _cut(b, Wb), _cut(bias, Wb) if has_bias else bias,
-            _cut(rig, Wb) if has_rig else rig, _cut(pm, Wb))
+    """Carve kc <= KC seams at width w0, depth d0 off one map ([H, Wb]
+    planes): carve_chunk_resident_batched on a batch of one. Returns (hist
+    [KC, H] i32, cur_b', cur_bias', cur_rig', posmap')."""
+    if cur_b.ndim != 2:
+        raise ValueError(f"cur_b: expected [H, Wb], got {tuple(cur_b.shape)}")
+    rigc = dp_cuda._rigc_device(delta_x, cur_b.shape[0], cur_b.device)
+    out = carve_chunk_resident_batched(
+        *(None if t is None else t[None]
+          for t in (cur_b, cur_bias, cur_rig, posmap)),
+        w0, d0, kc, cur_b.shape[0], rigc[None], delta_x, has_bias, has_rig,
+        nrg, ssf, KC)
+    return tuple(None if t is None else t[0] for t in out)
 
 
 def _padded(t: torch.Tensor, Wp: int) -> torch.Tensor:
@@ -302,28 +238,26 @@ def carve_chunk_resident_plain(cur_b, cur_bias, cur_rig, posmap, w0: int,
     return hist, b, bias, rig, pm
 
 
-def _batched_params(B, H, Wb, w0, d0, kc, h, KC) -> torch.Tensor:
+def _batched_params(B, H, Wb, w0, d0, kc, h, KC) -> np.ndarray:
     """The [B, 4] i32 host table [w0, d0, kc, h] of a batched chunk, each
     entry checked."""
-    params = torch.zeros((B, 4), dtype=torch.int32)
-    for i, col in enumerate((w0, d0, kc, h)):
-        v = torch.as_tensor(col, dtype=torch.int64).reshape(-1)
-        if v.numel() == 1:
-            v = v.expand(B)
-        if v.numel() != B:
-            raise ValueError(f"per-map argument {('w0', 'd0', 'kc', 'h')[i]}"
-                             f" has {v.numel()} entries for {B} maps")
+    params = np.empty((B, 4), np.int64)
+    for i, (name, col) in enumerate(zip(("w0", "d0", "kc", "h"),
+                                        (w0, d0, kc, h))):
+        v = np.asarray(col, np.int64).reshape(-1)
+        if v.size not in (1, B):
+            raise ValueError(f"per-map argument {name} has {v.size} "
+                             f"entries for {B} maps")
         params[:, i] = v
-    w0_, d0_, kc_, h_ = params.unbind(1)
+    w0_, d0_, kc_, h_ = params.T
     bad = ((kc_ < 0) | (kc_ > KC) | (kc_ > w0_) | (w0_ > Wb) | (d0_ < 0)
            | (h_ < 1) | (h_ > H))
-    if bool(bad.any()):
-        i = int(bad.nonzero()[0, 0])
-        raise ValueError(f"map {i}: w0={int(w0_[i])} d0={int(d0_[i])} "
-                         f"kc={int(kc_[i])} h={int(h_[i])} outside "
-                         f"0 <= kc <= min({KC}, w0), w0 <= {Wb}, d0 >= 0, "
-                         f"1 <= h <= {H}")
-    return params
+    if bad.any():
+        i = int(np.flatnonzero(bad)[0])
+        raise ValueError(f"map {i}: w0={w0_[i]} d0={d0_[i]} kc={kc_[i]} "
+                         f"h={h_[i]} outside 0 <= kc <= min({KC}, w0), "
+                         f"w0 <= {Wb}, d0 >= 0, 1 <= h <= {H}")
+    return params.astype(np.int32)
 
 
 def carve_chunk_resident_batched(cur_b, cur_bias, cur_rig, posmap, w0, d0,
@@ -333,20 +267,25 @@ def carve_chunk_resident_batched(cur_b, cur_bias, cur_rig, posmap, w0, d0,
     width w0[i], depth d0[i] and true height h[i] (each a host int or a
     sequence of B), with the rigidity coefficients rigc [B, delta_x + 1]
     f32 on the planes' device. Returns (hist [B, KC, H] i32, cur_b',
-    cur_bias', cur_rig', posmap') as carve_chunk_resident does per map."""
+    cur_bias', cur_rig', posmap'); cur_bias'/cur_rig' are the inputs when
+    their flag is off."""
     if cur_b.ndim != 3:
         raise ValueError(f"cur_b: expected [B, H, Wb], got "
                          f"{tuple(cur_b.shape)}")
-    B, H, Wb = cur_b.shape
-    _check_args(cur_b[0], None if cur_bias is None else cur_bias[0],
-                None if cur_rig is None else cur_rig[0], posmap[0], Wb, 0, 0,
-                delta_x, has_bias, has_rig, nrg, KC)
-    shape, dev = (B, H, Wb), cur_b.device
-    for name, t in (("cur_b", cur_b), ("posmap", posmap),
-                    ("cur_bias", cur_bias if has_bias else None),
-                    ("cur_rig", cur_rig if has_rig else None)):
-        if t is not None:
-            dp_cuda._check(t, name, t.dtype, shape, dev)
+    shape, dev = tuple(cur_b.shape), cur_b.device
+    B, H, Wb = shape
+    dp_cuda._check(cur_b, "cur_b", torch.float32, shape, dev)
+    dp_cuda._check(posmap, "posmap", torch.int32, shape, dev)
+    for name, plane, flag in (("cur_bias", cur_bias, has_bias),
+                              ("cur_rig", cur_rig, has_rig)):
+        if flag:
+            if plane is None:
+                raise ValueError(f"{name} is None but its flag is set")
+            dp_cuda._check(plane, name, torch.float32, shape, dev)
+    if not 0 <= delta_x <= 10:
+        raise ValueError(f"delta_x={delta_x} out of range 0..10")
+    if not 0 <= nrg <= 6:
+        raise ValueError(f"nrg={nrg} out of range 0..6")
     dp_cuda._check(rigc, "rigc", torch.float32, (B, delta_x + 1), dev)
     params = _batched_params(B, H, Wb, w0, d0, kc, h, KC)
     if dev.type == "cpu":
@@ -369,7 +308,7 @@ def carve_chunk_resident_batched(cur_b, cur_bias, cur_rig, posmap, w0, d0,
     e = torch.empty((B, H, Wp), dtype=torch.float32, device=dev)
     bp = torch.empty((B, H, Wp), dtype=torch.int8, device=dev)
     seam = torch.empty((B, H), dtype=torch.int32, device=dev)
-    params_d = params.to(dev)
+    params_d = to_device(params, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.lqr_carve_resident_batched(
@@ -379,7 +318,7 @@ def carve_chunk_resident_batched(cur_b, cur_bias, cur_rig, posmap, w0, d0,
             rigc.data_ptr(), params_d.data_ptr(), B, H, Wp, int(KC),
             delta_x, nrg, int(ssf), *geo, stream)
     _build.check(lib, rc, "lqr_carve_resident_batched")
-    dp_cuda.LAUNCHES["carve_resident_batched"] += 1
+    dp_cuda.LAUNCHES["carve_resident"] += 1
     BATCH_BLOCKS[str(geo[0])] += 1
     return (hist, _cut(b, Wb), _cut(bias, Wb) if has_bias else bias,
             _cut(rig, Wb) if has_rig else rig, _cut(pm, Wb))
@@ -389,9 +328,9 @@ def carve_chunk_resident_batched_plain(cur_b, cur_bias, cur_rig, posmap,
                                        params, rigc, delta_x: int,
                                        has_bias: bool, has_rig: bool,
                                        nrg: int, ssf: int, KC: int):
-    """The plain version of the batched entry, on any device: the loop over
-    the maps of carve_chunk_resident_plain. params: [B, 4] i32 rows
-    [w0, d0, kc, h] (host)."""
+    """The plain version of carve_chunk_resident_batched, on any device:
+    the loop over the maps of carve_chunk_resident_plain. params: [B, 4]
+    i32 rows [w0, d0, kc, h] (host)."""
     outs = []
     H = cur_b.shape[1]
     for i, (w0, d0, kc, h) in enumerate(params.tolist()):

@@ -33,9 +33,8 @@ from .. import profiling
 from . import _build
 
 LAUNCHES = profiling.group("LAUNCHES", {
-    "dp_forward": 0, "backtrack": 0, "carve_resident": 0,
-    "carve_resident_batched": 0, "dp_block": 0, "dp_sharded": 0,
-    "dp_energy_forward": 0, "backtrack_compact": 0})
+    "dp_forward": 0, "backtrack": 0, "carve_resident": 0, "dp_block": 0,
+    "dp_sharded": 0, "dp_energy_forward": 0, "backtrack_compact": 0})
 
 __all__ = ["LAUNCHES", "dp_forward", "backtrack", "find_seam",
            "dp_forward_plain", "backtrack_plain", "find_seam_plain"]

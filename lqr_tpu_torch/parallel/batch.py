@@ -17,14 +17,18 @@ Both functions that carve a batch give one result, bit for bit:
   carved by the engine's ``_carve_once`` and its seams committed to ``vs``
   once per chunk of KC (``engine._commit_hist``). It is the reference the
   routes below are held to.
-- ``extend_batched``, the route ``BatchCarver`` takes: chunks of KC seams,
-  each one launch of the batched resident kernel where
-  ``ops.carve_resident.batched_resident_ok`` admits the batch, else the
-  per-seam kernels map by map (``engine._extend_per_seam``). The launch
-  gives each map a thread-block cluster sized to the batch
+- ``extend_batched``, the route ``BatchCarver`` takes: the engine's
+  resident route ``engine.extend_resident`` (chunks of KC seams, each one
+  launch of the resident kernel for the whole batch) where
+  ``ops.carve_resident.resident_ok`` admits the batch, else the per-seam
+  kernels map by map (``engine._extend_per_seam``). The launch gives each
+  map a thread-block cluster sized to the batch
   (``ops.carve_resident.batch_cluster``): several SMs a map while the card
   holds every map's cluster at once, one block a map past that. On CPU
   tensors both run their plain versions.
+
+``materialize_batched`` and ``materialize_all_batched`` materialize every
+map at once (``engine.materialize_array`` over the batch axis).
 """
 
 from __future__ import annotations
@@ -35,11 +39,11 @@ import torch
 from ..core import dp
 from ..core import engine as eng
 from ..core.energy import reader_plane
-from ..core.state import EngineConfig, MapState, resolve_device, round_up
+from ..core.state import (EngineConfig, MapState, image_state,
+                          resolve_device, round_up)
 from ..errors import LqrImageError
 from ..i18n import _
-from ..ops.carve_resident import (batched_resident_ok,
-                                  carve_chunk_resident_batched)
+from ..ops.carve_resident import resident_ok
 from ..profiling import annotate, count
 from .sharding import (extend_map_sharded, gather_state, map_data_shards,
                        shard_batch_state)
@@ -90,17 +94,6 @@ def init_state_batched(cfg: EngineConfig, pixels, widths, bias=None,
 def per_image(n, B: int) -> np.ndarray:
     """A scalar or [B] count as an int64 array [B]."""
     return np.broadcast_to(np.asarray(n, np.int64), (B,)).copy()
-
-
-def image_state(st: MapState, i: int) -> MapState:
-    """Map i of a batched state, as a solo state (views, host ints)."""
-    def pick(a):
-        return None if a is None else a[i]
-    return MapState(ref=st.ref[i], bias=pick(st.bias), rig=pick(st.rig),
-                    vs=st.vs[i], aux=tuple(a[i] for a in st.aux),
-                    cur_b=st.cur_b[i], cur_bias=pick(st.cur_bias),
-                    cur_rig=pick(st.cur_rig), ref_w=int(st.ref_w[i]),
-                    depth=int(st.depth[i]))
 
 
 def _stack(planes):
@@ -165,69 +158,11 @@ def extend_map_batched(cfg: EngineConfig, st: MapState, k, heights=None,
                        else st.cur_rig, depth=depth)
 
 
-def _posmap_batched(vs: torch.Tensor, ref_w: np.ndarray) -> torch.Tensor:
-    """posmap[b, y, r] = reference column of the r-th visible pixel of row
-    y of map b, then the hidden columns in order: the stable argsort of
-    engine._posmap_from_vs, as a cumsum and one scatter."""
-    B, H, Wb = vs.shape
-    lane = torch.arange(Wb, dtype=torch.int32, device=vs.device)
-    rw = torch.from_numpy(ref_w).to(vs.device)[:, None, None]
-    visible = (vs == 0) & (lane < rw)
-    vis = visible.to(torch.int32)
-    n_vis = vis.sum(dim=2, keepdim=True)
-    dest = torch.where(visible, torch.cumsum(vis, dim=2) - 1,
-                       n_vis + torch.cumsum(1 - vis, dim=2) - 1)
-    pm = torch.empty_like(vs)
-    pm.scatter_(2, dest.long(), lane.expand(B, H, Wb).contiguous())
-    return pm
-
-
-def _extend_resident(cfg: EngineConfig, st: MapState, k, heights=None,
-                     rigc=None) -> MapState:
-    """extend_batched's route through the batched resident kernel: chunks
-    of KC seams counted from this call, each one launch for the whole
-    batch, each committed to vs by one scatter."""
-    B, H, Wb = st.vs.shape
-    KC = eng.KC
-    k = per_image(k, B)
-    dev = st.vs.device
-    h = np.full(B, H) if heights is None else np.asarray(heights)
-    rc = _rigc(cfg, heights, rigc, B, dev)
-    # vs lives in a buffer one element longer: a -1 history entry (past a
-    # map's kc) commits to that last element, which nothing reads
-    vs_buf = torch.empty(B * H * Wb + 1, dtype=torch.int32, device=dev)
-    vs = vs_buf[:-1].view(B, H, Wb)
-    vs.copy_(st.vs)
-    pm = _posmap_batched(vs, st.ref_w)
-    base = ((torch.arange(B, device=dev)[:, None, None] * H
-             + torch.arange(H, device=dev)[None, None, :]) * Wb)
-    jrow = torch.arange(KC, dtype=torch.int32, device=dev)[None, :, None]
-    cur_b, cur_bias, cur_rig = st.cur_b, st.cur_bias, st.cur_rig
-    depth = st.depth.copy()
-    done, kmax = 0, int(k.max()) if B else 0
-    while done < kmax:
-        kc = np.clip(k - done, 0, KC)
-        hist, cur_b, cur_bias, cur_rig, pm = carve_chunk_resident_batched(
-            cur_b, cur_bias, cur_rig, pm, st.ref_w - depth, depth, kc, h,
-            rc, cfg.delta_x, cfg.has_bias, cfg.has_rig, cfg.nrg,
-            cfg.side_switch_freq, KC)
-        idx = torch.where(hist >= 0, base + hist, B * H * Wb)
-        ids = torch.from_numpy(depth).to(dev)[:, None, None] + 1 + jrow
-        vs_buf.scatter_(0, idx.reshape(-1),
-                        ids.to(torch.int32).expand(B, KC, H).reshape(-1))
-        depth += kc
-        done += KC
-    return st._replace(vs=vs, cur_b=cur_b, cur_bias=cur_bias,
-                       cur_rig=cur_rig, depth=depth)
-
-
-def _extend_per_seam(cfg: EngineConfig, st: MapState, k, heights=None,
-                     rigc=None) -> MapState:
+def _extend_per_seam(cfg: EngineConfig, st: MapState, k, heights,
+                     rc: torch.Tensor) -> MapState:
     """extend_batched's route for batches the resident kernel refuses: the
     per-seam kernels, one map after the other."""
     B, H = st.vs.shape[:2]
-    k = per_image(k, B)
-    rc = _rigc(cfg, heights, rigc, B, st.vs.device)
     outs = []
     for i in range(B):
         h = None if heights is None or heights[i] == H else int(heights[i])
@@ -248,22 +183,22 @@ def extend_batched(cfg: EngineConfig, st: MapState, k, heights=None,
     equal extend_map_batched bit for bit. Each call is the span
     ``engine.<route>_batched``."""
     B, H, Wb = st.vs.shape
-    name = ("resident" if batched_resident_ok(B, H, Wb, cfg.has_bias,
-                                              cfg.has_rig) else "per_seam")
+    k = per_image(k, B)
+    name = ("resident" if resident_ok(B, H, Wb, cfg.has_bias, cfg.has_rig)
+            else "per_seam")
     with annotate(f"engine.{name}_batched"):
+        rc = _rigc(cfg, heights, rigc, B, st.vs.device)
         if name == "resident":
-            return _extend_resident(cfg, st, k, heights, rigc)
-        return _extend_per_seam(cfg, st, k, heights, rigc)
+            return eng.extend_resident(cfg, st, k,
+                                       H if heights is None else heights, rc)
+        return _extend_per_seam(cfg, st, k, heights, rc)
 
 
 def materialize_batched(cfg: EngineConfig, st: MapState, w,
                         out_Wb: int) -> torch.Tensor:
     """Each image at width w[b] -> [B, H, out_Wb, C] u8."""
-    w = per_image(w, st.vs.shape[0])
-    return torch.stack([
-        eng.materialize_array(st.ref[i], st.vs[i], int(st.ref_w[i]),
-                              int(w[i]), out_Wb)
-        for i in range(len(w))])
+    return eng.materialize_array(st.ref, st.vs, st.ref_w,
+                                 per_image(w, st.vs.shape[0]), out_Wb)
 
 
 def materialize_all_batched(cfg: EngineConfig, st: MapState, w,
@@ -271,14 +206,9 @@ def materialize_all_batched(cfg: EngineConfig, st: MapState, w,
     """Main image and every attached aux image at width w[b]: (img
     [B, H, out_Wb, C], aux tuple), the batched write_aux_carver."""
     w = per_image(w, st.vs.shape[0])
-
-    def one(arr):
-        return torch.stack([
-            eng.materialize_array(arr[i], st.vs[i], int(st.ref_w[i]),
-                                  int(w[i]), out_Wb)
-            for i in range(len(w))])
-
-    return one(st.ref), tuple(one(a) for a in st.aux)
+    return (materialize_batched(cfg, st, w, out_Wb),
+            tuple(eng.materialize_array(a, st.vs, st.ref_w, w, out_Wb)
+                  for a in st.aux))
 
 
 def _host_array(t: torch.Tensor) -> np.ndarray:

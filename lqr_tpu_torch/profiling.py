@@ -29,8 +29,9 @@ Spans in the port (innermost last): ``carver.init`` > ``carver.upload``,
 ``engine.per_seam`` > ``engine.seam`` > ``seam.energy`` | ``seam.find``
 | ``seam.compact`` | ``seam.commit``; ``carver.get_image`` >
 ``carver.materialize``, ``carver.copy_out``, ``carver.host_copy``;
-``batch.stage``, ``batch.upload``, ``engine.resident_batched`` or
-``engine.per_seam_batched`` (the latter over ``engine.seam``),
+``batch.stage``, ``batch.upload``, ``engine.resident_batched`` (over
+``resident.chunk`` | ``resident.commit``) or ``engine.per_seam_batched``
+(over ``engine.seam``),
 ``engine.sharded``, ``batch.images_at`` > ``batch.materialize``,
 ``batch.copy_out``. Counters: ``seams.<route>`` and ``route_ns.<route>``
 (the seams ``core.engine.extend_map`` carved by each of its routes, and

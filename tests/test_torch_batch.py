@@ -14,11 +14,15 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 from conftest import random_image
+from lqr_tpu.core import engine as jeng
 from lqr_tpu.parallel import batch as jbatch
 from lqr_tpu_torch import Carver, LqrImageError
 from lqr_tpu_torch.carver import place_mask_numpy
 from lqr_tpu_torch.core import engine as teng
+from lqr_tpu_torch.core.state import per_map
 from lqr_tpu_torch.ops import carve_resident as tcr
 from lqr_tpu_torch.ops import dp_cuda
 from lqr_tpu_torch.parallel import batch as tbatch
@@ -185,19 +189,23 @@ def _ragged_batch(seed, sizes, dx=2):
 def test_batched_resident_plain_matches_per_map():
     """The batched resident entry (its plain version on CPU tensors) is
     the per-map loop of carve_chunk_resident_plain, each map with its own
-    w0, d0, kc (one of them 0), true height and rigc row."""
+    w0, d0, kc (one of them 0), true height and rigc row; the batch's
+    posmap is lqr_tpu's map by map, and one map's alone."""
     sizes = [(12, 60), (16, 50), (7, 64), (16, 40)]
     imgs, _, kw = _ragged_batch(5, sizes)
     bc = tbatch.BatchCarver(imgs, device="cpu", **kw)
+    bc.carve([3, 0, 5, 1])          # hidden columns inside the rows
     st = bc.state
     B, H, Wb = st.vs.shape
-    pm = tbatch._posmap_batched(st.vs, st.ref_w)
+    pm = teng._posmap(st.vs, per_map(st.ref_w, "cpu"))
     for i in range(B):
-        assert torch.equal(pm[i], teng._posmap_from_vs(st.vs[i],
-                                                       int(st.ref_w[i])))
+        want = np.asarray(jeng._posmap_from_vs(jnp.asarray(st.vs[i].numpy()),
+                                               jnp.int32(st.ref_w[i])))
+        np.testing.assert_array_equal(pm[i].numpy(), want)
+        assert torch.equal(teng._posmap(st.vs[i], int(st.ref_w[i])), pm[i])
     rigc = torch.from_numpy(tbatch.rigc_table(bc.heights, 2))
     kc = [5, 0, 9, 3]
-    d0 = [0, 2, 1, 0]
+    d0 = [3, 0, 5, 1]
     w0 = list(bc.widths - np.array(d0))
     before = dict(dp_cuda.LAUNCHES)
     got = tcr.carve_chunk_resident_batched(
@@ -229,10 +237,11 @@ def test_routes_match_reference_loop_and_solo_carvers():
     n = np.array([9, 5, 0])
     bc = tbatch.BatchCarver(imgs, device="cpu", **kw)
     cfg, st0 = bc.cfg, bc.state
-    ref = tbatch.extend_map_batched(cfg, st0, n, bc.heights,
-                                    tbatch.rigc_table(bc.heights, 2))
-    for route in (tbatch._extend_resident, tbatch._extend_per_seam):
-        got = route(cfg, st0, n, bc.heights)
+    rigc = tbatch.rigc_table(bc.heights, 2)
+    ref = tbatch.extend_map_batched(cfg, st0, n, bc.heights, rigc)
+    rigc = torch.from_numpy(rigc)
+    for route in (teng.extend_resident, tbatch._extend_per_seam):
+        got = route(cfg, st0, n, bc.heights, rigc)
         for name in _STATE:
             assert torch.equal(getattr(got, name), getattr(ref, name)), name
         np.testing.assert_array_equal(got.depth, n)
@@ -259,11 +268,39 @@ def test_chunk_boundary(monkeypatch):
     imgs, _, kw = _ragged_batch(31, sizes, dx=1)
     bc = tbatch.BatchCarver(imgs, device="cpu", **kw)
     n = np.array([11, 6])
-    ref = tbatch.extend_map_batched(bc.cfg, bc.state, n, bc.heights,
-                                    tbatch.rigc_table(bc.heights, 1))
-    got = tbatch._extend_resident(bc.cfg, bc.state, n, bc.heights)
+    rigc = tbatch.rigc_table(bc.heights, 1)
+    ref = tbatch.extend_map_batched(bc.cfg, bc.state, n, bc.heights, rigc)
+    got = teng.extend_resident(bc.cfg, bc.state, n, bc.heights,
+                               torch.from_numpy(rigc))
     for name in _STATE:
         assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+
+def test_materialize_batched_mixes_shrink_and_enlarge():
+    """materialize_batched and materialize_all_batched on a ragged batch
+    with a bias and an aux image, at widths that shrink some maps, enlarge
+    others (up to the map's depth) and keep one, equal lqr_tpu's
+    materialize_array map by map, the image, the aux and the f32 bias."""
+    sizes = [(10, 40), (14, 36), (6, 44), (12, 30)]
+    imgs, _, kw = _ragged_batch(41, sizes)
+    rng = np.random.default_rng(42)
+    aux = [[_tied(rng, h, w, 1)] for h, w in sizes]
+    bc = tbatch.BatchCarver(imgs, aux=aux, device="cpu", **kw)
+    bc.carve(np.array([9, 5, 0, 7]))
+    st, out_Wb = bc.state, bc.cfg.Wb
+    w = bc.widths + np.array([-4, 5, 0, 7])
+    img = tbatch.materialize_batched(bc.cfg, st, w, out_Wb)
+    img_all, (aux_t,) = tbatch.materialize_all_batched(bc.cfg, st, w, out_Wb)
+    bias = teng.materialize_array(st.bias, st.vs, st.ref_w, w, out_Wb)
+    assert torch.equal(img_all, img)
+    for i in range(len(sizes)):
+        args = (jnp.asarray(st.vs[i].numpy()), jnp.int32(st.ref_w[i]),
+                jnp.int32(w[i]), out_Wb)
+        for got, plane in ((img, st.ref), (aux_t, st.aux[0]),
+                           (bias, st.bias)):
+            want = jeng.materialize_array(jnp.asarray(plane[i].numpy()),
+                                          *args)
+            np.testing.assert_array_equal(got[i].numpy(), np.asarray(want))
 
 
 def test_errors():

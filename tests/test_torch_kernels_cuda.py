@@ -310,7 +310,7 @@ def test_resident_batched_matches_plain(cuda, cluster):
     for nrg in (0, 1):
         args = (b, bias, rig, pm, w0, d0, kc, heights, rigc, dx, True, True,
                 nrg, 2, engine.KC)
-        before = dp_cuda.LAUNCHES["carve_resident_batched"]
+        before = dp_cuda.LAUNCHES["carve_resident"]
         blocks = dict(carve_resident.BATCH_BLOCKS)
         got = carve_resident.carve_chunk_resident_batched(*args)
         params = carve_resident._batched_params(B, H, Wb, w0, d0, kc,
@@ -319,7 +319,7 @@ def test_resident_batched_matches_plain(cuda, cluster):
             b, bias, rig, pm, params, rigc, dx, True, True, nrg, 2,
             engine.KC)
         torch.cuda.synchronize()
-        assert dp_cuda.LAUNCHES["carve_resident_batched"] == before + 1
+        assert dp_cuda.LAUNCHES["carve_resident"] == before + 1
         assert {k: v - blocks[k] for k, v in
                 carve_resident.BATCH_BLOCKS.items()} == {
             k: int(k == str(cluster[0])) for k in blocks}
@@ -341,7 +341,7 @@ def test_wide_carver_cuda_matches_native(cuda):
                                   native.materialize(img, vs, 32697))
 
 
-def test_batch_carver_cuda_matches_native(cuda):
+def test_batch_carver_cuda_matches_native(cuda, monkeypatch):
     """A ragged BatchCarver with biases, rigmasks and an aux image on the
     batched resident kernel, against the C++ reference per image; the
     per-seam route gives the same state."""
@@ -359,9 +359,9 @@ def test_batch_carver_cuda_matches_native(cuda):
     n = np.array([20, 31, 9, 0])
     bc = BatchCarver(imgs, rigidity=20.0, biases=biases, rigmasks=rigm,
                      aux=aux, device="cuda")
-    before = dp_cuda.LAUNCHES["carve_resident_batched"]
+    before = dp_cuda.LAUNCHES["carve_resident"]
     bc.carve(n)
-    assert dp_cuda.LAUNCHES["carve_resident_batched"] == before + 1
+    assert dp_cuda.LAUNCHES["carve_resident"] == before + 1
     vs = bc.state.vs.cpu().numpy()
     outs = bc.images_at(bc.widths - n)
     auxs = bc.aux_at(bc.widths - n)
@@ -375,7 +375,8 @@ def test_batch_carver_cuda_matches_native(cuda):
             auxs[i][0], native.materialize(aux[i][0], ref, w - n[i]))
     st0 = BatchCarver(imgs, rigidity=20.0, biases=biases, rigmasks=rigm,
                       device="cuda")
-    per_seam = tb._extend_per_seam(st0.cfg, st0.state, n, st0.heights)
+    monkeypatch.setattr(tb, "resident_ok", lambda *a: False)
+    per_seam = tb.extend_batched(st0.cfg, st0.state, n, st0.heights)
     assert torch.equal(per_seam.vs, bc.state.vs)
     assert torch.equal(per_seam.cur_b, bc.state.cur_b)
 
@@ -453,9 +454,8 @@ def test_carver_cuda_matches_native(cuda):
     # 192 x 256 takes the resident route: one launch for the 26 seams
     launched = {k: dp_cuda.LAUNCHES[k] - before[k] for k in before}
     assert launched == {"dp_forward": 0, "backtrack": 0, "carve_resident": 1,
-                        "carve_resident_batched": 0, "dp_block": 0,
-                        "dp_sharded": 0, "dp_energy_forward": 0,
-                        "backtrack_compact": 0}
+                        "dp_block": 0, "dp_sharded": 0,
+                        "dp_energy_forward": 0, "backtrack_compact": 0}
     c.resize(270, 192)
     np.testing.assert_array_equal(c.get_image(),
                                   native.materialize(img, vs, 270))
@@ -532,7 +532,7 @@ def test_masked_carver_cuda_matches_native(cuda):
 
 
 @pytest.mark.parametrize("nrg,dx,rig", [(2, 2, 0.0), (4, 1, 25.0)])
-def test_extend_map_cuda_matches_cpu(cuda, nrg, dx, rig):
+def test_extend_map_cuda_matches_cpu(cuda, monkeypatch, nrg, dx, rig):
     img = _image(2, 64, 200)
     cfg = EngineConfig(H=64, Wb=256, C=3, delta_x=dx, nrg=nrg,
                        has_rig=rig > 0)
@@ -540,8 +540,10 @@ def test_extend_map_cuda_matches_cpu(cuda, nrg, dx, rig):
     cpu = engine.extend_map(cfg, init_state(cfg, img, rig=field,
                                               device="cpu"), 30)
     # both routes on the card: the per-seam kernels and the resident one
-    for route in (engine._extend_per_seam, engine._extend_resident):
-        got = route(cfg, init_state(cfg, img, rig=field, device=cuda), 30)
+    for route in ("per_seam", "resident"):
+        monkeypatch.setattr(engine, "route", lambda cfg, r=route: r)
+        got = engine.extend_map(cfg, init_state(cfg, img, rig=field,
+                                                device=cuda), 30)
         for name in ("vs", "cur_b"):
             np.testing.assert_array_equal(getattr(got, name).cpu().numpy(),
                                           getattr(cpu, name).numpy())

@@ -223,7 +223,7 @@ def _solo(route, monkeypatch):
 
 
 def _batched(resident, monkeypatch):
-    monkeypatch.setattr(batch, "batched_resident_ok", lambda *a: resident)
+    monkeypatch.setattr(batch, "resident_ok", lambda *a: resident)
     BatchCarver([_image(1), _image(2)], device="cpu").carve([5, 4])
 
 

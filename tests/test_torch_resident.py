@@ -1,9 +1,10 @@
 """The port's resident chunk carve (lqr_tpu_torch.ops.carve_resident, plain
 version on the CPU) against the JAX package's carve_chunk_resident, whose
 Pallas kernel runs in interpreter mode (LQR_PALLAS_INTERPRET=1) as
-tests/test_carve_resident.py runs it; the port's two extend_map routes
-against each other and against lqr_tpu's extend_map(use_pallas=False); and
-the port's resident gate.
+tests/test_carve_resident.py runs it; the resident route's commits against
+lqr_tpu's _commit_ref_hist; the port's two extend_map routes against each
+other and against lqr_tpu's extend_map(use_pallas=False); and the port's
+resident gate.
 
 Tolerance 0 everywhere: the committed visibility maps, the compacted
 planes at every column, posmap below the new width."""
@@ -48,7 +49,7 @@ def _pair(img, bias, rig, Wb, **kw):
 
 
 def _port_chunk(t, w0, d0, kc, dx, has_bias, has_rig, nrg):
-    pm = teng._posmap_from_vs(t.vs, t.ref_w)
+    pm = teng._posmap(t.vs, t.ref_w)
     return tcr.carve_chunk_resident(t.cur_b, t.cur_bias, t.cur_rig, pm, w0,
                                     d0, kc, dx, has_bias, has_rig, nrg, 2,
                                     teng.KC)
@@ -79,9 +80,9 @@ def test_plain_matches_jax_resident(monkeypatch, has_bias, has_rig, nrg,
     np.testing.assert_array_equal(th[:kc].numpy(), np.asarray(jh)[:kc])
     assert (th[kc:] == -1).all()
     vs_j = jeng._commit_ref_hist(j.vs, jnp.int32(0), jnp.int32(kc), jh)
-    vs_t = t.vs.clone()
-    teng._commit_ref_hist(vs_t, 0, kc, th)
-    np.testing.assert_array_equal(vs_t.numpy(), np.asarray(vs_j))
+    assert teng.route(tcfg) == "resident"      # one chunk, one commit
+    t1 = teng.extend_map(tcfg, t, kc)
+    np.testing.assert_array_equal(t1.vs.numpy(), np.asarray(vs_j))
     np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
     if has_bias:
         np.testing.assert_array_equal(tbias.numpy(), np.asarray(jbias))
@@ -93,8 +94,8 @@ def test_plain_matches_jax_resident(monkeypatch, has_bias, has_rig, nrg,
 
 
 def test_chunks_at_depth_compose_like_jax(monkeypatch):
-    """Two port chunks (d0 = 0, then d0 = 4) commit the map of one JAX
-    chunk of 8 seams."""
+    """Two chunks of the port's resident route (KC = 4: d0 = 0, then
+    d0 = 4) commit the map of one JAX chunk of 8 seams."""
     monkeypatch.setenv("LQR_PALLAS_INTERPRET", "1")
     from lqr_tpu.ops.carve_resident import carve_chunk_resident
     H, Wb = 16, 256
@@ -105,29 +106,30 @@ def test_chunks_at_depth_compose_like_jax(monkeypatch):
         jnp.int32(0), jnp.int32(8), 1, False, False, 0, 2, jeng.KC)
     vs_j = jeng._commit_ref_hist(j.vs, jnp.int32(0), jnp.int32(8), jh)
 
-    vs_t = t.vs.clone()
-    ha, ba, _, _, pma = _port_chunk(t, Wb, 0, 4, 1, False, False, 0)
-    teng._commit_ref_hist(vs_t, 0, 4, ha)
-    hb, *_ = tcr.carve_chunk_resident(ba, None, None, pma, Wb - 4, 4, 4, 1,
-                                      False, False, 0, 2, teng.KC)
-    teng._commit_ref_hist(vs_t, 4, 4, hb)
-    np.testing.assert_array_equal(vs_t.numpy(), np.asarray(vs_j))
+    monkeypatch.setattr(teng, "KC", 4)
+    assert teng.route(tcfg) == "resident"
+    t1 = teng.extend_map(tcfg, t, 8)
+    assert t1.depth == 8
+    np.testing.assert_array_equal(t1.vs.numpy(), np.asarray(vs_j))
 
 
 @pytest.mark.parametrize("has_bias,has_rig,dx", [(False, False, 1),
                                                  (True, True, 2)])
-def test_routes_match_jax_across_a_chunk(has_bias, has_rig, dx):
-    """k = 140 crosses the 128-seam chunk; both of the port's routes give
-    lqr_tpu's state, then a second call extends from depth 140."""
+def test_routes_match_jax_across_a_chunk(monkeypatch, has_bias, has_rig,
+                                        dx):
+    """k = 140 crosses the 128-seam chunk; extend_map on each of the port's
+    routes gives lqr_tpu's state, then a second call extends from depth
+    140."""
     H, w, Wb, k = 6, 300, 384, 140
     img, bias, rig = _planes(11 + dx, H, Wb, has_bias, has_rig, w=w)
     jcfg, j, tcfg, t = _pair(img, bias, rig, Wb, delta_x=dx)
-    assert tcr.resident_ok(H, Wb, has_bias, has_rig)
+    assert tcr.resident_ok(1, H, Wb, has_bias, has_rig)
     j1 = jeng.extend_map(jcfg, j, jnp.int32(k))
     j2 = jeng.extend_map(jcfg, j1, jnp.int32(9))
-    for route in (teng._extend_resident, teng._extend_per_seam):
-        t1 = route(tcfg, t, k)
-        t2 = route(tcfg, t1, 9)
+    for route in ("resident", "per_seam"):
+        monkeypatch.setattr(teng, "route", lambda cfg, r=route: r)
+        t1 = teng.extend_map(tcfg, t, k)
+        t2 = teng.extend_map(tcfg, t1, 9)
         for got, want in ((t1, j1), (t2, j2)):
             assert got.depth == int(want.depth)
             for name in ("vs", "cur_b", "cur_bias", "cur_rig"):
@@ -135,28 +137,28 @@ def test_routes_match_jax_across_a_chunk(has_bias, has_rig, dx):
                 assert (g is None) == (e is None), name
                 if g is not None:
                     np.testing.assert_array_equal(
-                        g.numpy(), np.asarray(e), err_msg=route.__name__)
+                        g.numpy(), np.asarray(e), err_msg=route)
     assert not t.vs.any()
 
 
 def test_gate():
     # the configurations of scripts/bench_all.py that it must admit
     assert tcr.resident_bytes(384, 512, False, False) == 1769472
-    assert tcr.resident_ok(384, 512, False, False)
+    assert tcr.resident_ok(1, 384, 512, False, False)
     assert tcr.resident_bytes(768, 1024, True, True) == 13369344
-    assert tcr.resident_ok(768, 1024, True, True)
+    assert tcr.resident_ok(1, 768, 1024, True, True)
     # the 2048^2 main path, the largest map measured, takes the resident
     # route; one column more, with bias and rigidity (71 MB of planes), or
     # larger, the per-seam route
     assert tcr.resident_bytes(2048, 2048, False, False) == 37748736
     assert tcr.resident_bytes(2048, 2048, False, False) == tcr.RESIDENT_BUDGET
-    assert tcr.resident_ok(2048, 2048, False, False)
-    assert not tcr.resident_ok(2048, 2049, False, False)
+    assert tcr.resident_ok(1, 2048, 2048, False, False)
+    assert not tcr.resident_ok(1, 2048, 2049, False, False)
     assert tcr.resident_bytes(2048, 2048, True, True) == 71303168
-    assert not tcr.resident_ok(2048, 2048, True, True)
-    assert not tcr.resident_ok(2048, 2560, False, False)
-    assert not tcr.resident_ok(16, tcr.MAX_WB + 128, False, False)
-    assert tcr.resident_ok(16, 384, False, False)
+    assert not tcr.resident_ok(1, 2048, 2048, True, True)
+    assert not tcr.resident_ok(1, 2048, 2560, False, False)
+    assert not tcr.resident_ok(1, 16, tcr.MAX_WB + 128, False, False)
+    assert tcr.resident_ok(1, 16, 384, False, False)
 
 
 def test_wrapper_checks_inputs_and_counts_no_cpu_launch():

@@ -349,15 +349,13 @@ def test_model_ragged_batch_matches_plain(nrg, cluster):
 
 
 @pytest.mark.parametrize("cluster", [
-    pytest.param(tcr.SOLO_CLUSTER, id="False"),
     pytest.param(tcr.ONE_BLOCK, id="True"),
     *[pytest.param(c, id=f"True-{c[0]}x{c[1]}") for c in tcr.BATCH_CLUSTERS]])
 def test_model_at_kernel_geometry(cluster):
-    """The geometry the wrapper launches (resident_geometry): the solo
-    entry's cluster ("False") and each of the batched entry's (one block a
-    map, "True", and each wider cluster), with the kernel's 256-column
-    window over several strips, its block's threads and its cluster's
-    warps."""
+    """The geometry the wrapper launches (resident_geometry) on each
+    cluster (one block a map, "True", and each wider cluster; one map gets
+    8 x 8), with the kernel's 256-column window over several strips, its
+    block's threads and its cluster's warps."""
     H, W, Wb, dx = 10, 590, 600, 1
     Wp = tcr.padded_width(Wb)
     kw = _kernel_geo(Wp, dx, cluster)
@@ -394,8 +392,8 @@ _HELD = {(8, 8): 15, (8, 4): 30, (4, 8): 30, (4, 4): 62, (2, 8): 66,
     (31, (2, 8)), (64, (2, 8)), (100, (2, 4)), (256, (1, 4))])
 def test_batch_cluster_rule(B, cluster):
     """The cluster with the most warps a map that the card holds B of at
-    once, else one block of 4 warps a map; B = 1 runs under the solo gate
-    and gets the solo entry's geometry."""
+    once, else one block of 4 warps a map; B = 1 runs under the budget of
+    planes, a batch whenever its columns fit the kernel."""
     assert tcr.batch_cluster(B, _HELD.get) == cluster
     geo = tcr.resident_geometry(1024, 1, cluster)
     if cluster == tcr.ONE_BLOCK:
@@ -403,13 +401,32 @@ def test_batch_cluster_rule(B, cluster):
     else:
         assert geo == (*cluster, 2, 4, 128, 64, 64)
     if B == 1:
-        assert geo == tcr.resident_geometry(1024, 1)
         for H in (1024, 4096):
-            assert tcr.batched_resident_ok(1, H, 1024, True, True) == \
-                tcr.resident_ok(H, 1024, True, True)
-        assert not tcr.batched_resident_ok(1, 4096, 1024, True, True)
+            assert tcr.resident_ok(1, H, 1024, True, True) == (
+                tcr.resident_bytes(H, 1024, True, True)
+                <= tcr.RESIDENT_BUDGET)
+        assert not tcr.resident_ok(1, 4096, 1024, True, True)
     else:
-        assert tcr.batched_resident_ok(B, 4096, 1024, True, True)
+        assert tcr.resident_ok(B, 4096, 1024, True, True)
+    assert not tcr.resident_ok(B, 16, tcr.MAX_WB + 128, False, False)
+
+
+@pytest.mark.parametrize("H,W,masks,solo", [
+    (2048, 2048, False, (8, 8, 4, 4, 128, 64, 64)),
+    (768, 1024, True, (8, 8, 2, 4, 128, 64, 64)),
+    (384, 512, False, (8, 8, 1, 3, 176, 40, 40))])
+def test_one_map_keeps_the_solo_geometry(monkeypatch, H, W, masks, solo):
+    """A batch of one, at the shapes Carver launches (2048^2; 1024x768
+    with bias and rigidity; test_gate's 512x384), takes the resident route
+    on 8 blocks of 8 warps with the geometry the solo launch had (`solo`,
+    recorded from it on an H100's opt-in shared memory): the first
+    cluster whenever the card holds one."""
+    monkeypatch.setattr(tcr.dp_cuda, "smem_optin", lambda d: 232448)
+    assert tcr.resident_ok(1, H, W, masks, masks)
+    cluster = tcr.batch_cluster(1, lambda c: 1)
+    assert cluster == (8, 8)
+    Wp = tcr.padded_width(W)
+    assert tcr._geometry(Wp, 1, cluster, torch.device("cuda", 0)) == solo
 
 
 def test_batch_cluster_skips_a_cluster_too_narrow_for_the_strips():
@@ -477,8 +494,8 @@ def _jax_pair(img, bias, rig, Wb, dx, nrg):
 @pytest.mark.parametrize("dx,nrg,batched", [(1, 0, False), (2, 2, True)])
 def test_model_matches_jax_resident(monkeypatch, dx, nrg, batched):
     """The model against lqr_tpu's carve_chunk_resident (Pallas, interpreter
-    mode) at the JAX tests' shape, bias and rigidity on, with the solo and
-    the batched entry's geometry."""
+    mode) at the JAX tests' shape, bias and rigidity on, with one map's
+    cluster (8 x 8) and with one block a map."""
     monkeypatch.setenv("LQR_PALLAS_INTERPRET", "1")
     from lqr_tpu.ops.carve_resident import carve_chunk_resident
     H, Wb, kc = 16, 256, 4
@@ -491,12 +508,12 @@ def test_model_matches_jax_resident(monkeypatch, dx, nrg, batched):
         j.cur_b, j.cur_bias, j.cur_rig, jeng._posmap_from_vs(j.vs, j.ref_w),
         j.ref_w, jnp.int32(0), jnp.int32(kc), dx, True, True, nrg,
         jcfg.side_switch_freq, jeng.KC)
-    pm = teng._posmap_from_vs(t.vs, t.ref_w)
+    pm = teng._posmap(t.vs, t.ref_w)
     got = chunk_model(t.cur_b, t.cur_bias, t.cur_rig, pm, Wb, 0, kc, dx,
                       nrg, jcfg.side_switch_freq, jeng.KC,
                       **_kernel_geo(Wb, dx,
                                     tcr.ONE_BLOCK if batched
-                                    else tcr.SOLO_CLUSTER))
+                                    else tcr.BATCH_CLUSTERS[0]))
     np.testing.assert_array_equal(got[0][:kc].numpy(), np.asarray(jh)[:kc])
     for g, e in ((got[1], jb), (got[2], jbias), (got[3], jrig)):
         np.testing.assert_array_equal(g.numpy(), np.asarray(e))

@@ -100,9 +100,9 @@ def main(argv: list[str]) -> int:
     N, seams = smoke.N, smoke.SEAMS
     if not (batch_only or sharded_only):
         smoke.time_routes(dev, f"{N}x{N}", (N, N),
-                          [engine._extend_per_seam, engine._extend_resident,
+                          [engine._extend_per_seam, smoke.resident_route,
                            smoke.fused_split, smoke.fused_inline], seams, gpu)
-        routes = [engine._extend_resident, engine._extend_per_seam]
+        routes = [smoke.resident_route, engine._extend_per_seam]
         c2 = smoke.cfg2_inputs()
         smoke.time_routes(dev, "1024x768 with bias and rig", smoke.CFG2,
                           routes, seams, gpu, c2["bias"], c2["rig"])

@@ -56,7 +56,7 @@ def main(argv: list[str]) -> int:
             wall = time.perf_counter() - t0
         _report(label, prof.key_averages(), wall, seams, n, host_ops)
 
-    for route in (engine._extend_per_seam, engine._extend_resident,
+    for route in (engine._extend_per_seam, smoke.resident_route,
                   smoke.fused_split, smoke.fused_inline):
         profiled(route.__name__, lambda: init_state(cfg, img, device=dev),
                  lambda st, route=route: route(cfg, st, seams))

@@ -86,7 +86,7 @@ def main() -> int:
                            has_rig=rig is not None)
         st = init_state(cfg, smoke.crop_image(hw), bias=bias, rig=rig,
                         device=dev)
-        pm = engine._posmap_from_vs(st.vs, st.ref_w)
+        pm = engine._posmap(st.vs, st.ref_w)
         args = (st.cur_b, st.cur_bias, st.cur_rig, pm, w, 0, engine.KC, 1,
                 cfg.has_bias, cfg.has_rig, 0, cfg.side_switch_freq,
                 engine.KC)
