@@ -29,8 +29,8 @@ from .core.state import (EngineConfig, init_state, resolve_device,
 from .core import engine as eng
 from .i18n import _
 from .oracle import strength
+from .ops.place_mask import place_mask
 from .profiling import annotate, count
-from .utils import codec
 
 
 @dataclasses.dataclass
@@ -57,7 +57,8 @@ def place_mask_numpy(mask: np.ndarray, H: int, W: int, x_off: int,
                      y_off: int) -> np.ndarray:
     """Strength field [H, W] f32 of a mask placed at (x_off, y_off) on the
     image, clipped to it (SPEC.md §3): the NumPy form of
-    ``codec.place_mask``, which the tests hold it equal to."""
+    ``ops.place_mask`` and of lqr_tpu's ``codec.place_mask``, which the
+    tests hold it equal to."""
     s = strength(mask)
     field = np.zeros((H, W), np.float32)
     hm, wm = s.shape
@@ -150,33 +151,39 @@ class Carver:
         with annotate("carver.bias_add"):
             # f32(factor/1000): the f64 quotient rounded once, as lqr_tpu
             # does
-            add = self._place_mask(mask, x_off, y_off) * torch.tensor(
-                np.float32(float(factor) / 1000.0))
-            self._ref_bias = (add if self._ref_bias is None
-                              else self._ref_bias + add)
+            self._ref_bias = self._place_mask(
+                mask, x_off, y_off, np.float32(float(factor) / 1000.0),
+                self._ref_bias)
         self._drop_map()
 
     def rigmask_add(self, mask: np.ndarray, x_off: int = 0, y_off: int = 0):
         """lqr_carver_rigmask_add_rgb_area (SPEC.md §4): per-pixel rigidity
         multiplier = mask strength (0 outside the mask area)."""
         self._flatten_if_carved()
-        field = self._place_mask(mask, x_off, y_off)
-        self._ref_rig = field if self._ref_rig is None else self._ref_rig + field
+        self._ref_rig = self._place_mask(mask, x_off, y_off, np.float32(1.0),
+                                         self._ref_rig)
         self._drop_map()
 
-    def _place_mask(self, mask, x_off, y_off) -> torch.Tensor:
-        """The mask's strength field on the image, placed on the host by the
-        native codec (``codec.place_mask``, equal bit for bit to
-        ``place_mask_numpy``) and copied to the device once. A failure of
-        the native library raises: nothing falls back to NumPy."""
+    def _place_mask(self, mask, x_off, y_off, f, prev) -> torch.Tensor:
+        """prev (None: nothing) + f times the mask's strength field on the
+        image: the u8 mask copied to the device as it is, and the plane
+        built there by ``ops.place_mask``, equal bit for bit to
+        ``place_mask_numpy(...) * f`` (+ prev)."""
         with annotate("carver.place_mask"):
-            with annotate("mask.host"):
-                field = codec.place_mask(np.asarray(mask, np.uint8),
-                                         self._ref_h, self._ref_w, x_off,
-                                         y_off)
+            m = np.ascontiguousarray(np.asarray(mask, np.uint8))
+            if m.ndim == 2:
+                m = m[:, :, None]
+            if m.ndim != 3 or not 1 <= m.shape[2] <= 4:
+                raise LqrImageError(
+                    _("{what} has shape {shape}; expected [h, w] or [h, w, "
+                      "c] with 1-4 channels").format(what="mask",
+                                                     shape=m.shape))
             with annotate("mask.copy"):
-                out = torch.from_numpy(field).to(self.device)
-        count("bytes.h2d", field.nbytes)
+                dev_mask = torch.tensor(m, device=self.device)   # a copy
+            with annotate("mask.place"):
+                out = place_mask(dev_mask, self._ref_h, self._ref_w,
+                                 int(x_off), int(y_off), f, prev)
+        count("bytes.h2d", m.nbytes)
         return out
 
     # -- aux carvers --------------------------------------------------------

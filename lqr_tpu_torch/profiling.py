@@ -23,8 +23,9 @@ the port's one tracing system:
   card's speed-of-light bound from them.
 
 Spans in the port (innermost last): ``carver.init`` > ``carver.upload``,
-``carver.bias_add`` > ``carver.place_mask`` > ``mask.host`` |
-``mask.copy``; ``carver.resize`` > ``carver.build_map``,
+``carver.bias_add`` > ``carver.place_mask`` > ``mask.copy`` |
+``mask.place`` (``rigmask_add``'s ``carver.place_mask`` stands alone);
+``carver.resize`` > ``carver.build_map``,
 ``engine.resident`` > ``resident.chunk`` | ``resident.commit``, or
 ``engine.per_seam`` > ``engine.seam`` > ``seam.energy`` | ``seam.find``
 | ``seam.compact`` | ``seam.commit``; ``carver.get_image`` >

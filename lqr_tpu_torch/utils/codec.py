@@ -1,10 +1,11 @@
 """ctypes bridge to the native C++ image codec (native/imagecodec.cpp):
 PNG (8-bit gray, gray+alpha, RGB, RGBA, non-interlaced) and binary PNM
 encode and decode, and the host's buffer marshalling: planar
-``deinterleave``/``interleave``, ``place_mask`` (a mask's strength field
-at an offset, the Carver's mask placement) and ``stage_wave`` (a batch of
-rolled copies of one image written straight into the padded batch buffer,
-the staging of bench_all's cfg4 and cfg5).
+``deinterleave``/``interleave`` and ``stage_wave`` (a batch of rolled
+copies of one image written straight into the padded batch buffer, the
+staging of bench_all's cfg4 and cfg5). The library's ``lqr_place_mask``
+is bound by ``lqr_tpu.utils.codec`` alone: the port places masks on the
+device (``ops.place_mask``).
 
 The codec of ``lqr_tpu.utils.codec``, built at first use with the same
 flags into the port's own ``lqr_tpu_torch/build/`` (a per-process
@@ -62,7 +63,6 @@ def _load():
         os.replace(tmp, _SO)
     lib = ctypes.CDLL(str(_SO))
     u8p = ctypes.POINTER(ctypes.c_uint8)
-    f32p = ctypes.POINTER(ctypes.c_float)
     ip = ctypes.POINTER(ctypes.c_int)
     lp = ctypes.POINTER(ctypes.c_long)
     i = ctypes.c_int
@@ -83,9 +83,6 @@ def _load():
         fn = getattr(lib, name)
         fn.restype = None
         fn.argtypes = [u8p, i, i, i, u8p]
-    lib.lqr_place_mask.restype = None
-    lib.lqr_place_mask.argtypes = [u8p, i, i, i, i, i, ctypes.c_float, f32p,
-                                   i, i]
     lib.lqr_stage_wave.restype = None
     lib.lqr_stage_wave.argtypes = [u8p, i, i, i, ip, ip, i, u8p, i, i]
     _lib = lib
@@ -219,25 +216,4 @@ def stage_wave(base: np.ndarray, dys, dxs, out_h: int, out_w: int,
     ip = ctypes.POINTER(ctypes.c_int)
     lib.lqr_stage_wave(_u8p(base), h, w, c, dys.ctypes.data_as(ip),
                        dxs.ctypes.data_as(ip), n, _u8p(out), out_h, out_w)
-    return out
-
-
-def place_mask(mask: np.ndarray, H: int, W: int, x_off: int = 0,
-               y_off: int = 0, factor: float = 1.0,
-               out: np.ndarray | None = None) -> np.ndarray:
-    """Add a mask's strength field (mean(colour)/255 * alpha, SPEC.md §1)
-    times ``factor`` into an [H, W] f32 field at (x_off, y_off), clipped
-    to the field (SPEC.md §3); a fresh zero field unless ``out`` is
-    given."""
-    lib = _load()
-    mask = _image3(mask, "mask")
-    mh, mw, mc = mask.shape
-    if out is None:
-        out = np.zeros((H, W), np.float32)
-    else:
-        _check_out(out, (H, W), np.float32)
-    lib.lqr_place_mask(_u8p(mask), mh, mw, mc, int(x_off), int(y_off),
-                       ctypes.c_float(factor),
-                       out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-                       H, W)
     return out

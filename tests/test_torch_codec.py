@@ -102,7 +102,7 @@ def test_other_formats_need_pillow(tmp_path, no_pil):
         load_image(str(tmp_path / "b.tif"))
 
 
-# -- the host's buffer marshalling: stage_wave, (de)interleave, place_mask
+# -- the host's buffer marshalling: stage_wave, (de)interleave; placement
 
 
 @pytest.mark.parametrize("c", [1, 3, 4])
@@ -162,39 +162,42 @@ def test_interleave_round_trip_equal_to_jax(c):
 
 @pytest.mark.parametrize("c", [1, 2, 3, 4])
 def test_place_mask_equal_to_jax_and_numpy(c):
-    """Inside, negative and clipping offsets, wholly outside; factors;
-    accumulation into a caller's field."""
+    """The port's placement (ops.place_mask, on the CPU) against lqr_tpu's
+    native codec and place_mask_numpy: inside, negative and clipping
+    offsets, wholly outside; factors; a sum into a plane held, which is
+    only read."""
     from lqr_tpu_torch.carver import place_mask_numpy
+    from lqr_tpu_torch.ops.place_mask import place_mask
     mask = _arr(c, 9, 14, seed=3)
+    m, one = torch.from_numpy(mask), np.float32(1.0)
     H, W = 20, 30
     for x_off, y_off in ((3, 2), (-4, -3), (25, 15), (-13, 19), (-20, 0),
                          (0, 40), (17, -8)):
-        got = tcodec.place_mask(mask, H, W, x_off, y_off)
+        got = place_mask(m, H, W, x_off, y_off, one).numpy()
         assert got.dtype == np.float32 and got.shape == (H, W)
         np.testing.assert_array_equal(
             got, jcodec.place_mask(mask, H, W, x_off, y_off))
         np.testing.assert_array_equal(
             got, place_mask_numpy(mask, H, W, x_off, y_off))
         for factor in (-0.8, 2.5, 1000.0):
-            acc = tcodec.place_mask(mask, H, W, 1, 1)
+            acc = place_mask(m, H, W, 1, 1, one)
+            held = acc.clone()
             want = jcodec.place_mask(mask, H, W, 1, 1)
             jcodec.place_mask(mask, H, W, x_off, y_off, factor, out=want)
-            assert tcodec.place_mask(mask, H, W, x_off, y_off, factor,
-                                     out=acc) is acc
-            np.testing.assert_array_equal(acc, want)
+            np.testing.assert_array_equal(
+                place_mask(m, H, W, x_off, y_off, np.float32(factor),
+                           acc).numpy(), want)
+            assert torch.equal(acc, held)
     if c == 1:
         np.testing.assert_array_equal(
-            tcodec.place_mask(mask[:, :, 0], H, W, 2, 3),
+            place_mask_numpy(mask[:, :, 0], H, W, 2, 3),
             jcodec.place_mask(mask[:, :, 0], H, W, 2, 3))
-    with pytest.raises(tcodec.NativeCodecError, match="buffer"):
-        tcodec.place_mask(mask, H, W, out=np.zeros((H, W), np.float64))
 
 
 def test_native_codec_error_is_an_lqr_image_error():
     assert issubclass(tcodec.NativeCodecError, LqrImageError)
     for fn in (lambda: tcodec.decode(b"not an image"),
-               lambda: tcodec.place_mask(np.zeros((2, 2, 5), np.uint8), 4,
-                                         4)):
+               lambda: tcodec.interleave(np.zeros((4, 4), np.uint8))):
         try:
             fn()
         except LqrImageError as e:

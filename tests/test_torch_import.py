@@ -111,6 +111,7 @@ COUNTERPARTS = {
     "ops/dp_pallas.py:carve_step_pallas": "ops/carve_step.py:carve_step",
     "ops/dp_pallas.py:fused_ok": "ops/carve_step.py:fused_ok",
     "ops/dp_block.py:dp_block_pallas": "ops/dp_block.py:dp_blocked",
+    "utils/codec.py:place_mask": "ops/place_mask.py:place_mask",
 }
 # ... or why none is ported: each stands in ROADMAP.md with its reason
 BY_DESIGN = {

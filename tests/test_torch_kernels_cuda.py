@@ -20,7 +20,11 @@ import lqr_tpu_torch
 from lqr_tpu_torch import native
 from lqr_tpu_torch.core import engine
 from lqr_tpu_torch.core.state import EngineConfig, init_state
+from lqr_tpu_torch import profiling
 from lqr_tpu_torch.ops import _build, carve_resident, dp_cuda
+from lqr_tpu_torch.ops.place_mask import place_mask
+
+import mask_cases
 
 torch.set_num_threads(1)
 
@@ -529,6 +533,77 @@ def test_masked_carver_cuda_matches_native(cuda):
                                   native.materialize(aux, vs, w - n))
     assert dp_cuda.LAUNCHES["carve_resident"] == before["carve_resident"] + 1
     assert dp_cuda.LAUNCHES["dp_forward"] == before["dp_forward"]
+
+
+def _same_bits(a, b):
+    """Bit-equal f32 tensors (the signs of zero count)."""
+    return torch.equal(a.cpu().view(torch.int32), b.cpu().view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("C", [1, 2, 3, 4])
+def test_place_mask_matches_plain(cuda, C, n):
+    """ops.place_mask (plain PyTorch) on the card against the same on the
+    CPU, n placements summed into one plane (mask_cases.mask_runs: offsets
+    inside, negative, past the edges, outside, a mask larger than the
+    plane; factors +-1000, -800)."""
+    H, W = mask_cases.MASK_PLANE
+    for run in mask_cases.mask_runs(C, n):
+        got = cpu = None
+        for mask, x_off, y_off, factor in run:
+            f = np.float32(factor / 1000.0)
+            m = torch.from_numpy(mask)
+            got = place_mask(m.to(cuda), H, W, x_off, y_off, f, got)
+            cpu = place_mask(m, H, W, x_off, y_off, f, cpu)
+        torch.cuda.synchronize()
+        assert got.is_cuda and _same_bits(got, cpu), run
+
+
+@pytest.mark.parametrize("hw,count", [((2048, 2048), 2), ((768, 1024), 3)])
+def test_place_mask_at_the_cells_shapes(cuda, hw, count):
+    """The masked cells' shapes: image-sized one-channel masks at +1000,
+    -1000 and a rigidity mask, summed on the card and on the CPU."""
+    got = cpu = None
+    for mask, factor in mask_cases.cell_masks(hw, count):
+        f = np.float32(1.0 if factor is None else factor / 1000.0)
+        m = torch.from_numpy(mask)
+        got = place_mask(m.to(cuda), *hw, 0, 0, f, got)
+        cpu = place_mask(m, *hw, 0, 0, f, cpu)
+    torch.cuda.synchronize()
+    assert _same_bits(got, cpu)
+
+
+def test_masked_carver_planes_cuda_match_cpu(cuda):
+    """A CUDA Carver's bias and rigidity planes after bias_add and
+    rigmask_add (1-4 channels, clipped offsets, a flatten of a vertical
+    map between placements) equal a CPU Carver's bit for bit, and
+    bytes.h2d counts the masks' u8 bytes."""
+    h, w = 96, 160
+    img = _image(5, h, w)
+    rng = np.random.default_rng(6)
+    masks = [(rng.integers(0, 256, (h // 2, w // 3, c)).astype(np.uint8),
+              x_off, y_off, factor)
+             for c, x_off, y_off, factor in ((3, w // 4, h // 4, 1000.0),
+                                             (4, -20, -10, -800.0),
+                                             (1, w - 30, h - 20, None),
+                                             (2, 0, 0, -1000.0))]
+    carvers = {dev: lqr_tpu_torch.Carver(img, rigidity=30.0, device=dev)
+               for dev in ("cpu", cuda)}
+    for dev, c in carvers.items():
+        before = profiling.counters()["bytes.h2d"]
+        for j, (mask, x_off, y_off, factor) in enumerate(masks):
+            if factor is None:
+                c.rigmask_add(mask, x_off, y_off)
+            else:
+                c.bias_add(mask, factor, x_off, y_off)
+            if j == 1:
+                c.resize(w, h - 8)      # a vertical map, then a flatten
+        uploaded = profiling.counters()["bytes.h2d"] - before
+        assert uploaded == sum(m.nbytes for m, *_ in masks), dev
+    cpu, gpu = carvers["cpu"], carvers[cuda]
+    assert gpu._ref_bias.is_cuda and gpu._ref_rig.is_cuda
+    assert _same_bits(gpu._ref_bias, cpu._ref_bias)
+    assert _same_bits(gpu._ref_rig, cpu._ref_rig)
 
 
 @pytest.mark.parametrize("nrg,dx,rig", [(2, 2, 0.0), (4, 1, 25.0)])

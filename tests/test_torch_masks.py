@@ -9,6 +9,7 @@ import torch
 
 import lqr_tpu
 import lqr_tpu_torch
+import mask_cases
 from conftest import random_image
 from lqr_tpu import oracle as joracle
 from lqr_tpu.utils import codec
@@ -16,6 +17,7 @@ from lqr_tpu_torch import native
 from lqr_tpu_torch import oracle as toracle
 from lqr_tpu_torch.carver import place_mask_numpy
 from lqr_tpu_torch.config import EnergyFunc, ResizeOrder
+from lqr_tpu_torch.ops.place_mask import place_mask
 
 torch.set_num_threads(1)
 
@@ -76,6 +78,53 @@ def test_strength_and_placement_match_jax(C):
             err_msg=f"{x_off=} {y_off=}")
     if C == 1:       # a 2-D mask is one channel
         np.testing.assert_array_equal(toracle.strength(mask[:, :, 0]), want)
+
+
+def _bits(a):
+    return np.asarray(a, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("C", [1, 2, 3, 4])
+def test_place_mask_plain_equals_codec(C, n):
+    """ops.place_mask on the CPU sums n placements
+    into one plane bit for bit as the Carver's planes were built before:
+    each field from place_mask_numpy and from lqr_tpu's codec, times
+    f32(factor/1000), added in turn; compared as int32, so the signs of
+    zero count. Offsets inside, negative, past the far edges, wholly
+    outside, a mask larger than the image; factors +-1000 and -800. A CPU
+    Carver's bias (bias_add) and rigidity (rigmask_add) planes equal the
+    codec-built ones."""
+    H, W = mask_cases.MASK_PLANE
+    runs = mask_cases.mask_runs(C, n)
+    img = _img(10, H, W)
+    for run in runs:
+        got = None
+        want = {"numpy": None, "jax codec": None}
+        rig_want = None
+        c = lqr_tpu_torch.Carver(img, device="cpu")
+        for mask, x_off, y_off, factor in run:
+            f = np.float32(factor / 1000.0)
+            got = place_mask(torch.from_numpy(mask), H, W, x_off, y_off, f,
+                             got)
+            fields = {"numpy": place_mask_numpy(mask, H, W, x_off, y_off),
+                      "jax codec": codec.place_mask(mask, H, W, x_off,
+                                                    y_off)}
+            for k, field in fields.items():
+                add = field * f
+                want[k] = add if want[k] is None else want[k] + add
+            field = fields["jax codec"]
+            rig_want = field if rig_want is None else rig_want + field
+            c.bias_add(mask, factor, x_off, y_off)
+            c.rigmask_add(mask, x_off, y_off)
+        assert got.dtype == torch.float32 and got.shape == (H, W)
+        for k, plane in want.items():
+            np.testing.assert_array_equal(_bits(got.numpy()), _bits(plane),
+                                          err_msg=k)
+        np.testing.assert_array_equal(_bits(c._ref_bias.numpy()),
+                                      _bits(want["jax codec"]))
+        np.testing.assert_array_equal(_bits(c._ref_rig.numpy()),
+                                      _bits(rig_want))
 
 
 @pytest.mark.parametrize("order", [ResizeOrder.HOR, ResizeOrder.VERT])
@@ -164,7 +213,7 @@ def test_masks_match_native(nrg):
                                      ((-30, 20), (10, 30))])
 def test_clipped_masks_match_jax(offsets):
     """bias_add + rigmask_add at offsets that clip the masks at every edge:
-    the port's native placement (codec.place_mask) gives lqr_tpu.Carver's
+    the port's placement (ops.place_mask) gives lqr_tpu.Carver's
     maps and pixels."""
     h, w = 30, 64
     img = _img(8, h, w)

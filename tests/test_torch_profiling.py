@@ -159,7 +159,7 @@ def test_spans_on_names_and_parents(route, monkeypatch):
                    "carver.resize"]
     expect = {"carver.upload": "carver.init",
               "carver.place_mask": "carver.bias_add",
-              "mask.host": "carver.place_mask",
+              "mask.place": "carver.place_mask",
               "mask.copy": "carver.place_mask",
               "carver.build_map": "carver.resize",
               f"engine.{route}": "carver.resize",
@@ -210,7 +210,7 @@ def test_chrome_trace_holds_the_carver_spans(tmp_path, monkeypatch):
         _request("per_seam", monkeypatch, seams=3)
     names = [e.get("name") for e in json.loads(path.read_text())[
         "traceEvents"]]
-    for name in ("carver.upload", "carver.place_mask", "mask.host",
+    for name in ("carver.upload", "carver.place_mask", "mask.place",
                  "engine.per_seam", "engine.seam", "seam.find",
                  "carver.materialize", "carver.copy_out"):
         assert tprof.PREFIX + name in names, name
@@ -289,9 +289,9 @@ def test_bytes_of_a_carver():
     aux = img[:, :, :1].copy()
     c = Carver(img, device="cpu")
     moved = _delta(lambda: (c.bias_add(MASK, 500.0), c.attach(aux)))
-    # the upload is counted at construction; the mask's field is [H, W]
-    # f32 on the image, the aux image its own bytes
-    assert moved["bytes.h2d"] == H * W * 4 + H * W * 1
+    # the upload is counted at construction; the mask and the aux image
+    # their own u8 bytes (the mask's field is built on the device)
+    assert moved["bytes.h2d"] == MASK.nbytes + H * W * 1
     assert _delta(lambda: Carver(img, device="cpu"))["bytes.h2d"] == img.nbytes
     c.resize(W - 6, H)
     assert _delta(c.get_image)["bytes.d2h"] == H * (W - 6) * C

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """The end-to-end timings of chip_smoke.py phase 5 for the checkout at ROOT.
 
-    python3 tools/ab_timing.py ROOT LABEL [--kernels | --batch | --sharded]
+    python3 tools/ab_timing.py ROOT LABEL [--kernels | --batch | --sharded |
+                                           --masks]
 
 Imports ROOT's chip_smoke.py and ROOT's lqr_tpu_torch, builds its kernels,
 and times what phase 5 times: 100 seams at 2048x2048 through both
@@ -13,7 +14,12 @@ kernels (dp_energy_forward, backtrack_compact) at 2048x2048. With
 the mean of 50 launches) at the shapes their routes give them: 2048x2048,
 1024x768 with rigidity, 512x384; with --batch only BatchCarver.carve on
 cfg5 and the cfg4 wave, first in a fresh process; with --sharded only
-the column-sharded 2048x2048. Each line is prefixed with LABEL. To compare two
+the column-sharded 2048x2048; with --masks only a masked Carver request
+at the two masked cells' shapes (2048x2048 with a preservation and a
+discard mask; 1024x768 with both and a rigidity mask, rigidity 300): the
+mask placements (the bias_add / rigmask_add calls, synchronized) and the
+whole request, Carver(...) to get_image() after 100 seams, the median of 7
+runs. Each line is prefixed with LABEL. To compare two
 commits on one card, unpack the other with ``git archive`` and run both in
 turns in one call, one process each: parent, change, change, parent.
 """
@@ -72,6 +78,55 @@ def time_fused_kernel(smoke, dev, label: str) -> None:
           f"{bt[1]:.4f} ms on {torch.cuda.get_device_name(0)}", flush=True)
 
 
+def time_masked_requests(smoke, dev, label: str) -> None:
+    """A masked Carver request of ROOT at the masked cells' shapes: each a
+    block of 255 in a [h, w] u8 mask, 0 elsewhere, placed at (0, 0)."""
+    import statistics
+    import time
+
+    import numpy as np
+    import torch
+    from lqr_tpu_torch import Carver
+
+    def block(h, w, y0, y1, x0, x1):
+        m = np.zeros((h, w), np.uint8)
+        m[y0:y1, x0:x1] = 255
+        return m
+
+    for (h, w), rigidity, rig in (((smoke.N, smoke.N), 0.0, False),
+                                  (smoke.CFG2, 300.0, True)):
+        img = smoke.crop_image((h, w))
+        bias = [(block(h, w, h // 4, 3 * h // 4, w // 3, 2 * w // 3), 1000.0),
+                (block(h, w, 0, h // 5, 0, w // 5), -1000.0)]
+        rigm = [block(h, w, h // 3, 2 * h // 3, 0, w // 2)] if rig else []
+        place, whole = [], []
+        for i in range(8):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c = Carver(img, rigidity=rigidity, device=dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for mask, factor in bias:
+                c.bias_add(mask, factor)
+            for mask in rigm:
+                c.rigmask_add(mask)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            c.resize(w - smoke.SEAMS, h)
+            c.get_image()
+            t3 = time.perf_counter()
+            if i:
+                place.append((t2 - t1) * 1e3)
+                whole.append((t3 - t0) * 1e3)
+            del c
+        print(f"[{label}] masked request {w}x{h}, {len(bias) + len(rigm)} "
+              f"masks: placements {statistics.median(place):.3f} ms "
+              f"(runs {[round(x, 3) for x in place]}), whole request "
+              f"{statistics.median(whole):.3f} ms (runs "
+              f"{[round(x, 3) for x in whole]}) on "
+              f"{torch.cuda.get_device_name(0)}", flush=True)
+
+
 def main(argv: list[str]) -> int:
     root, label = pathlib.Path(argv[0]).resolve(), argv[1]
     sys.path.insert(0, str(root))
@@ -90,6 +145,9 @@ def main(argv: list[str]) -> int:
     smoke.say = lambda phase, msg: print(f"[{label}] {msg}", flush=True)
     dev = torch.device("cuda", 0)
     gpu = torch.cuda.get_device_name(0)
+    if argv[2:] == ["--masks"]:
+        time_masked_requests(smoke, dev, label)
+        return 0
     batch_only = argv[2:] == ["--batch"]
     sharded_only = argv[2:] == ["--sharded"]
     if not (batch_only or sharded_only):
